@@ -1,0 +1,40 @@
+"""lexls_tpu_torch — the PyTorch / CUDA port of lexls_tpu for NVIDIA Hopper.
+
+The port's first slice: the batched, warm-started sequence solve through
+the whole-solve tier, with the level-panel factorization (kernel B1) and
+the whole active-set loop (kernel B2) as hand-written CUDA kernels.  It
+imports torch and NumPy only; ``lexls_tpu`` (JAX) is the reference that
+the tests hold it against.
+"""
+
+__version__ = "0.1.0"
+
+from .types import (
+    CtrType,
+    InequalityHierarchy,
+    LexLSError,
+    OperationType,
+    ParametersLexLSE,
+    ParametersLexLSI,
+    RegularizationType,
+    TerminationStatus,
+    build_general_hierarchy,
+)
+from .lexlsi import LexLSIState, Structure, solve_core_fused
+from .sequence import solve_sequence_batched_fused
+
+__all__ = [
+    "CtrType",
+    "InequalityHierarchy",
+    "LexLSError",
+    "LexLSIState",
+    "OperationType",
+    "ParametersLexLSE",
+    "ParametersLexLSI",
+    "RegularizationType",
+    "Structure",
+    "TerminationStatus",
+    "build_general_hierarchy",
+    "solve_core_fused",
+    "solve_sequence_batched_fused",
+]

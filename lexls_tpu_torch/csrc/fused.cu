@@ -1,0 +1,493 @@
+// Kernel B2: the whole active-set solve of each instance in one kernel.
+//
+// Replaces the Pallas TPU kernel lexls_tpu/ops/fused.py::fused_active_set
+// (pl.pallas_call at fused.py:966; body _fused_kernel, fused.py:182-769),
+// for general levels (d0 = 0) with default options: no working-set log, no
+// cycling handling, no iter_cap/it0 pause and no factor export.
+//
+// Design on the H100: one thread block (128 threads) per instance loops
+// over active-set iterations until its own instance terminates; the TPU
+// kernel ran a tile of instances in lock step and froze finished ones by
+// predication, so it waited for the tile's slowest instance (and needed
+// compaction to recover).  Per-instance state lives in device memory
+// allocated by the wrapper (the masked LOD, taus, column norms, positions,
+// multipliers, L rows) and stays in L1/L2 while the block works on it.
+// An iteration is a chain of small dependent stages (about 120 pivot steps
+// at the bench shape, each ending in block reductions), so the kernel is
+// bound by barrier and reduction latency, not by bytes or FLOPs; many
+// independent blocks per SM hide that latency.  Reflection vectors for
+// the λ replay are read back from the pivot columns of the LOD (where the
+// panel step leaves their essential parts) instead of being stored twice.
+//
+// Stages per iteration (fused.py line numbers): formLexLSE masking
+// (278-327), per-level panel loop (335-411), Gauss elimination of the
+// lower rows with L stored in the pivot columns (433-455), backward
+// substitution (479-498), step (511-517), ratio test (150-174), λ sweep by
+// Householder replay j = K-1..0 (532-583), removal selection with both
+// strategies and CORRECT_SIGN marking (585-648), working-set update and
+// counters (650-677).
+#include <cuda_runtime.h>
+
+#include <cmath>
+
+#include "panel_step.cuh"
+
+namespace lexls {
+
+constexpr int kFusedThreads = 128;
+constexpr int kInactive = 0, kActiveLb = 1, kActiveUb = 2, kActiveEq = 3, kCorrectSign = 4;
+constexpr int kUnknown = -1, kSolved = 0;
+
+template <typename T>
+struct FusedArgs {
+  const T* A;
+  const T* lb;
+  const T* ub;
+  int* ct;
+  int* st;
+  int* ns;
+  T* x;
+  T* v;
+  T* Ax;
+  int* nf;
+  T* dx;
+  T* dv;
+  T* Adx;
+  int* it;
+  int* na;
+  int* nd;
+  int* status;
+  const int* lvl;   // (2, p): level sizes, then first rows
+  const int* prio;  // (p, m) λ-sweep visit priority
+  const int* elig;  // (p, m) λ-sweep eligibility
+  T* work;
+  int* iwork;
+  int m, n, p, kmax, dmax;
+  size_t wstride, iwstride;
+  T tol_ld, tol_feas, tol_wrong, tol_correct;
+  int max_fact, deact_first;
+};
+
+__device__ __forceinline__ bool is_active(int t) {
+  return t == kActiveLb || t == kActiveUb || t == kActiveEq;
+}
+
+template <typename T>
+__device__ __forceinline__ T rhs_of(int t, T lb, T ub) {
+  return (t == kActiveUb || t == kActiveEq) ? ub : (t == kActiveLb ? lb : T(0));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid % kWarp, wid = tid / kWarp, nw = nt / kWarp;
+  const int m = a.m, n = a.n, p = a.p, ld = n + 1, kmax = a.kmax;
+  const T inf = T(INFINITY);
+
+  const T* A = a.A + (size_t)b * m * n;
+  const T* lb = a.lb + (size_t)b * m;
+  const T* ub = a.ub + (size_t)b * m;
+  int* ct = a.ct + (size_t)b * m;
+  int* st = a.st + (size_t)b * m;
+  T* x = a.x + (size_t)b * n;
+  T* v = a.v + (size_t)b * m;
+  T* Ax = a.Ax + (size_t)b * m;
+  T* dx = a.dx + (size_t)b * n;
+  T* dv = a.dv + (size_t)b * m;
+  T* Adx = a.Adx + (size_t)b * m;
+
+  T* lod = a.work + (size_t)b * a.wstride;  // (m, n+1) masked subproblem
+  T* hh = lod + (size_t)m * ld;             // (m) taus
+  T* cn = hh + m;                           // (n) column norms
+  T* u = cn + n;                            // (dmax) reflection / backsub vector
+  T* xvar = u + a.dmax;                     // (n) basic solution
+  T* lam = xvar + n;                        // (p, m) multipliers of every objective
+  T* rhs_all = lam + (size_t)p * m;         // (p, n) λ back-propagation
+  T* Lbuf = rhs_all + (size_t)p * n;        // (m, kmax) Gauss multipliers per row
+  int* pos = a.iwork + (size_t)b * a.iwstride;  // (n) column -> position
+  int* colat = pos + n;                     // (p, kmax) pivot column per level slot
+  int* sense = colat + p * kmax;            // (m) types with CORRECT_SIGN marks
+  int* wrong = sense + m;                   // (m) wrong-sign flags of one objective
+  int* lvl_fc = wrong + m;                  // (p) first position of each level
+  int* lvl_rank = lvl_fc + p;               // (p) rank of each level
+  const int* dims = a.lvl;
+  const int* offs = a.lvl + p;
+
+  // instance scalars, held identically by every thread
+  int ns = a.ns[b], nf = a.nf[b], it = 0, na = 0, nd = 0, status = kUnknown;
+  for (int c = tid; c < n; c += nt) dx[c] = T(0);
+  for (int i = tid; i < m; i += nt) dv[i] = Adx[i] = T(0);
+
+  while (status == kUnknown && (it == 0 || nf < a.max_fact)) {
+    // ---- masked LexLSE subproblem: inactive rows are zero
+    for (int idx = tid; idx < m * ld; idx += nt) {
+      const int i = idx / ld, c = idx - i * ld;
+      const int t = ct[i];
+      lod[idx] = !is_active(t) ? T(0) : (c < n ? A[i * n + c] : rhs_of(t, lb[i], ub[i]));
+    }
+    for (int c = tid; c < n; c += nt) pos[c] = c;
+    for (int i = tid; i < m; i += nt) hh[i] = T(0);
+    __syncthreads();
+
+    // ---- factorize level by level
+    int ci = 0;
+    for (int k = 0; k < p; ++k) {
+      const int dim = dims[k], fr = offs[k];
+      const int fc = ci;
+      if (dim > 0) {
+        Panel<T> P;
+        P.blk = lod + (size_t)fr * ld;
+        P.ld = ld;
+        P.dim = dim;
+        P.n = n;
+        P.cn = cn;
+        P.pos = pos;
+        P.col_at = nullptr;
+        P.rank_row = nullptr;
+        P.hh = hh + fr;
+        P.u = u;
+        P.fr = fr;
+        P.tol = a.tol_ld;
+        panel_init_norms(P);
+        __syncthreads();
+        for (int counter = 0; counter < dim; ++counter)
+          if (!panel_step<T, true>(P, counter, ci)) break;
+      }
+      const int end = ci, rank = ci - fc;
+      int* cl = colat + k * kmax;
+      for (int c = tid; c < n; c += nt) {
+        const int q = pos[c];
+        if (q >= fc && q < end) cl[q - fc] = c;
+      }
+      if (tid == 0) {
+        lvl_fc[k] = fc;
+        lvl_rank[k] = rank;
+      }
+      __syncthreads();
+      if (k == p - 1 || rank == 0) continue;
+
+      // Gauss elimination of the rows below: L R = B by a forward column
+      // sweep, one thread per row
+      const T* Rrow = lod + (size_t)fr * ld;  // R(i, j) = Rrow[i * ld + cl[j]]
+      for (int r = fr + dim + tid; r < m; r += nt) {
+        T* Lr = Lbuf + (size_t)r * kmax;
+        for (int j = 0; j < rank; ++j) {
+          const int cj = cl[j];
+          T wj = lod[(size_t)r * ld + cj];
+          for (int i = 0; i < j; ++i) wj -= Lr[i] * Rrow[i * ld + cj];
+          const T rjj = Rrow[j * ld + cj];
+          Lr[j] = wj / (rjj != T(0) ? rjj : T(1));
+        }
+      }
+      __syncthreads();
+      // trailing update below - L [R T | rhs], and L into the pivot columns
+      for (int r = fr + dim; r < m; ++r) {
+        const T* Lr = Lbuf + (size_t)r * kmax;
+        for (int c = tid; c <= n; c += nt) {
+          if (c < n) {
+            const int q = pos[c];
+            if (q < fc) continue;
+            if (q < end) {
+              lod[(size_t)r * ld + c] = Lr[q - fc];
+              continue;
+            }
+          }
+          T s = 0;
+          for (int j = 0; j < rank; ++j) s += Lr[j] * Rrow[j * ld + c];
+          lod[(size_t)r * ld + c] -= s;
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- basic solve: backward substitution per level, free vars = 0
+    for (int c = tid; c < n; c += nt) xvar[c] = T(0);
+    __syncthreads();
+    for (int k = p - 1; k >= 0; --k) {
+      const int rank = lvl_rank[k];
+      if (rank == 0) continue;
+      const int fc = lvl_fc[k], end = fc + rank, fr = offs[k];
+      const int* cl = colat + k * kmax;
+      const T* Rrow = lod + (size_t)fr * ld;
+      for (int i = wid; i < rank; i += nw) {
+        T s = 0;
+        for (int c = lane; c < n; c += kWarp)
+          if (pos[c] >= end) s += Rrow[i * ld + c] * xvar[c];
+        s = warp_sum(s);
+        if (lane == 0) u[i] = Rrow[i * ld + n] - s;
+      }
+      __syncthreads();
+      if (wid == 0) {
+        for (int j = rank - 1; j >= 0; --j) {
+          const T rjj = Rrow[j * ld + cl[j]];
+          const T yj = u[j] / (rjj != T(0) ? rjj : T(1));
+          __syncwarp();
+          if (lane == 0) u[j] = yj;
+          for (int i = lane; i < j; i += kWarp) u[i] -= yj * Rrow[i * ld + cl[j]];
+          __syncwarp();
+        }
+      }
+      __syncthreads();
+      for (int c = tid; c < n; c += nt) {
+        const int q = pos[c];
+        if (q >= fc && q < end) xvar[c] += u[q - fc];
+      }
+      __syncthreads();
+    }
+
+    // ---- step (objective.h:288-338)
+    for (int c = tid; c < n; c += nt) dx[c] = xvar[c] - x[c];
+    __syncthreads();
+    for (int i = wid; i < m; i += nw) {
+      T s = 0;
+      for (int c = lane; c < n; c += kWarp) s += A[(size_t)i * n + c] * dx[c];
+      s = warp_sum(s);
+      if (lane == 0) {
+        const int t = ct[i];
+        Adx[i] = s;
+        dv[i] = -v[i] + (is_active(t) ? Ax[i] + s - rhs_of(t, lb[i], ub[i]) : T(0));
+      }
+    }
+    __syncthreads();
+
+    // ---- ratio test over inactive rows; first minimum wins
+    T rloc = inf;
+    for (int i = tid; i < m; i += nt) {
+      const T den = Adx[i] - dv[i];
+      const bool neg = den < -a.tol_feas, posd = den > a.tol_feas;
+      T masked = inf;
+      if (ct[i] == kInactive && (neg || posd)) {
+        T r = ((neg ? lb[i] : ub[i]) - Ax[i] + v[i]) / den;
+        masked = r < T(0) ? T(0) : r;
+      }
+      lam[i] = masked;  // lam is free until the sweep fills it
+      if (masked < rloc) rloc = masked;
+    }
+    const T amin = block_min(rloc);
+    int rowloc = INT_MAX;
+    for (int i = tid; i < m; i += nt)
+      if (lam[i] != inf && lam[i] == amin && i < rowloc) rowloc = i;
+    const int brow = block_min(rowloc);
+    const bool blocking = amin < T(1) && brow < m;
+    const T alpha = blocking ? amin : T(1);
+    int btype = kInactive;
+    if (blocking) btype = (Adx[brow] - dv[brow] < -a.tol_feas) ? kActiveLb : kActiveUb;
+
+    // ---- λ sweep and removal selection, when nothing blocks
+    bool found = false;
+    int sel_row = -1;
+    if (!blocking) {
+      for (int idx = tid; idx < p * n; idx += nt) rhs_all[idx] = T(0);
+      __syncthreads();
+      for (int k = p - 1; k >= 0; --k) {
+        const int dim = dims[k];
+        if (dim == 0) continue;
+        const int fr = offs[k], rank = lvl_rank[k], fc = lvl_fc[k];
+        const int* cl = colat + k * kmax;
+        const T* Lv = lod + (size_t)fr * ld;
+        for (int idx = tid; idx < p * dim; idx += nt) {
+          const int jp = idx / dim, r = idx - jp * dim;
+          T s = T(0);
+          if (jp == k) s = r >= rank ? -Lv[r * ld + n] : T(0);
+          else if (jp > k && r < rank) s = rhs_all[jp * n + cl[r]];
+          lam[jp * m + fr + r] = s;
+        }
+        __syncthreads();
+        // S <- S Q^T, Householder replay j = K-1..0, one warp per objective
+        for (int jp = k + wid; jp < p; jp += nw) {
+          T* S = lam + jp * m + fr;
+          for (int j = rank - 1; j >= 0; --j) {
+            const T tau = hh[fr + j];
+            if (tau == T(0)) continue;
+            const int cj = cl[j];
+            T s = 0;
+            for (int r = j + lane; r < dim; r += kWarp)
+              s += S[r] * (r == j ? T(1) : Lv[r * ld + cj]);
+            const T t = tau * warp_sum(s);
+            for (int r = j + lane; r < dim; r += kWarp)
+              S[r] -= t * (r == j ? T(1) : Lv[r * ld + cj]);
+            __syncwarp();
+          }
+        }
+        __syncthreads();
+        // back-propagate into the columns of higher levels (pos < fc),
+        // through the L rows stored in their pivot columns
+        for (int idx = tid; idx < (p - k) * n; idx += nt) {
+          const int jp = k + idx / n, c = idx % n;
+          if (pos[c] >= fc) continue;
+          const T* S = lam + jp * m + fr;
+          T s = 0;
+          for (int r = 0; r < dim; ++r) s += S[r] * Lv[r * ld + c];
+          rhs_all[jp * n + c] -= s;
+        }
+        __syncthreads();
+      }
+
+      // removal selection: the first objective with a wrong-sign
+      // multiplier commits; CORRECT_SIGN marks only affect later ones
+      for (int i = tid; i < m; i += nt) sense[i] = ct[i];
+      for (int j = 0; j < p && !found; ++j) {
+        T aloc = inf;
+        int kloc = INT_MAX;
+        for (int i = tid; i < m; i += nt) {
+          const T val = lam[j * m + i];
+          const T ai = ct[i] == kActiveLb ? -val : val;
+          const int sn = sense[i];
+          const bool consider = a.elig[j * m + i] != 0 && (sn == kActiveLb || sn == kActiveUb);
+          if (consider && ai > a.tol_correct) sense[i] = kCorrectSign;
+          const bool w = consider && ai < -a.tol_wrong;
+          wrong[i] = w;
+          if (w) {
+            if (st[i] < kloc) kloc = st[i];
+            if (ai < aloc) aloc = ai;
+          }
+        }
+        int row_j;
+        if (a.deact_first) {
+          const int kmin = block_min(kloc);
+          int rloc2 = INT_MAX;
+          for (int i = tid; i < m; i += nt)
+            if (wrong[i] && st[i] == kmin && i < rloc2) rloc2 = i;
+          row_j = block_min(rloc2);
+        } else {
+          const T am = block_min(aloc);
+          long long key = LLONG_MAX;
+          for (int i = tid; i < m; i += nt) {
+            const T val = lam[j * m + i];
+            const T ai = ct[i] == kActiveLb ? -val : val;
+            if (wrong[i] && ai == am) {
+              const long long kk = ((long long)a.prio[j * m + i] << 32) | (long long)i;
+              if (kk < key) key = kk;
+            }
+          }
+          key = block_min(key);
+          row_j = key == LLONG_MAX ? INT_MAX : (int)(key & 0xffffffffLL);
+        }
+        if (row_j != INT_MAX) {
+          found = true;
+          sel_row = row_j;
+        }
+      }
+    }
+    const bool do_remove = !blocking && found;
+    const bool solved = !blocking && !found;
+
+    // ---- working-set update, step, counters
+    __syncthreads();
+    for (int i = tid; i < m; i += nt) {
+      if (blocking && i == brow) {
+        ct[i] = btype;
+        st[i] = ns;
+      } else if (do_remove && i == sel_row) {
+        ct[i] = kInactive;
+        st[i] = -1;
+      }
+    }
+    const T afl = alpha > T(0) ? alpha : T(0);
+    for (int c = tid; c < n; c += nt) x[c] += afl * dx[c];
+    for (int i = tid; i < m; i += nt) {
+      v[i] += afl * dv[i];
+      Ax[i] += afl * Adx[i];
+    }
+    ns += blocking;
+    if (solved) status = kSolved;
+    nf += it > 0;
+    it += 1;
+    na += blocking;
+    nd += do_remove;
+    __syncthreads();
+  }
+
+  if (tid == 0) {
+    a.ns[b] = ns;
+    a.nf[b] = nf;
+    a.it[b] = it;
+    a.na[b] = na;
+    a.nd[b] = nd;
+    a.status[b] = status;
+  }
+}
+
+template <typename T>
+int launch_fused(FusedArgs<T> a, int B, cudaStream_t stream) {
+  if (B > 0) fused_kernel<T><<<B, kFusedThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fused_entry(const T* A, const T* lb, const T* ub, int* ct, int* st, int* ns, T* x, T* v,
+                T* Ax, int* nf, T* dx, T* dv, T* Adx, int* it, int* na, int* nd, int* status,
+                const int* lvl, const int* prio, const int* elig, T* work, int* iwork, int B,
+                int m, int n, int p, int kmax, int dmax, T tol_ld, T tol_feas, T tol_wrong,
+                T tol_correct, int max_fact, int deact_first, void* stream) {
+  FusedArgs<T> a;
+  a.A = A;
+  a.lb = lb;
+  a.ub = ub;
+  a.ct = ct;
+  a.st = st;
+  a.ns = ns;
+  a.x = x;
+  a.v = v;
+  a.Ax = Ax;
+  a.nf = nf;
+  a.dx = dx;
+  a.dv = dv;
+  a.Adx = Adx;
+  a.it = it;
+  a.na = na;
+  a.nd = nd;
+  a.status = status;
+  a.lvl = lvl;
+  a.prio = prio;
+  a.elig = elig;
+  a.work = work;
+  a.iwork = iwork;
+  a.m = m;
+  a.n = n;
+  a.p = p;
+  a.kmax = kmax;
+  a.dmax = dmax;
+  a.wstride = (size_t)m * (n + 1) + m + n + dmax + n + (size_t)p * m + (size_t)p * n +
+              (size_t)m * kmax;
+  a.iwstride = (size_t)n + (size_t)p * kmax + 2 * (size_t)m + 2 * (size_t)p;
+  a.tol_ld = tol_ld;
+  a.tol_feas = tol_feas;
+  a.tol_wrong = tol_wrong;
+  a.tol_correct = tol_correct;
+  a.max_fact = max_fact;
+  a.deact_first = deact_first;
+  return launch_fused<T>(a, B, (cudaStream_t)stream);
+}
+
+}  // namespace lexls
+
+extern "C" {
+
+int lexls_fused_active_set_f32(const float* A, const float* lb, const float* ub, int* ct, int* st,
+                               int* ns, float* x, float* v, float* Ax, int* nf, float* dx,
+                               float* dv, float* Adx, int* it, int* na, int* nd, int* status,
+                               const int* lvl, const int* prio, const int* elig, float* work,
+                               int* iwork, int B, int m, int n, int p, int kmax, int dmax,
+                               float tol_ld, float tol_feas, float tol_wrong, float tol_correct,
+                               int max_fact, int deact_first, void* stream) {
+  return lexls::fused_entry<float>(A, lb, ub, ct, st, ns, x, v, Ax, nf, dx, dv, Adx, it, na, nd,
+                                   status, lvl, prio, elig, work, iwork, B, m, n, p, kmax, dmax,
+                                   tol_ld, tol_feas, tol_wrong, tol_correct, max_fact,
+                                   deact_first, stream);
+}
+
+int lexls_fused_active_set_f64(const double* A, const double* lb, const double* ub, int* ct,
+                               int* st, int* ns, double* x, double* v, double* Ax, int* nf,
+                               double* dx, double* dv, double* Adx, int* it, int* na, int* nd,
+                               int* status, const int* lvl, const int* prio, const int* elig,
+                               double* work, int* iwork, int B, int m, int n, int p, int kmax,
+                               int dmax, double tol_ld, double tol_feas, double tol_wrong,
+                               double tol_correct, int max_fact, int deact_first, void* stream) {
+  return lexls::fused_entry<double>(A, lb, ub, ct, st, ns, x, v, Ax, nf, dx, dv, Adx, it, na, nd,
+                                    status, lvl, prio, elig, work, iwork, B, m, n, p, kmax, dmax,
+                                    tol_ld, tol_feas, tol_wrong, tol_correct, max_fact,
+                                    deact_first, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,86 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``lexls_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, at first
+use, into ``build/lexls_tpu_torch/`` at the root of the checkout.  The
+library is named after a hash of the sources, so an edited source is
+rebuilt and a stale library is never loaded.  It is loaded with
+``ctypes``: pointers and the CUDA stream go in as ``c_void_p``, and every
+C entry returns ``cudaGetLastError()`` so that a refused launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lexls_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class BuildInfo(NamedTuple):
+    path: Path
+    seconds: float  # 0.0 when the library was already built
+    log: str        # nvcc's output (ptxas register and spill counts)
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> BuildInfo:
+    """Compile the kernels unless a library of the same sources exists."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha1()
+    for f in sorted(CSRC.glob("*.cu*")):
+        digest.update(f.name.encode() + f.read_bytes())
+    path = BUILD_DIR / f"liblexls_kernels-{digest.hexdigest()[:12]}.so"
+    log_path = path.with_suffix(".log")
+    if path.exists():
+        return BuildInfo(path, 0.0, log_path.read_text() if log_path.exists() else "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, path)
+    return BuildInfo(path, seconds, log)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    return ctypes.CDLL(str(build().path))
+
+
+@functools.lru_cache(maxsize=None)
+def bind(name: str, argtypes: tuple) -> ctypes._CFuncPtr:
+    """The C entry ``name`` with its argument types declared (once per
+    entry: later calls return the bound function)."""
+    fn = getattr(library(), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,389 @@
+"""Kernel B2: the entire active-set solve of each instance in one kernel.
+
+``fused_active_set`` runs the primal active-set loop (reference
+``LexLSI::solve``/``verifyWorkingSet``, ``lexlsi.h:205-246, 1144-1265``)
+to termination for every instance of a batch.  It replaces the Pallas TPU
+kernel ``lexls_tpu/ops/fused.py::fused_active_set`` (``pl.pallas_call``
+at ``fused.py:966``), for general levels (``d0 = 0``) with default
+options: no working-set log, no cycling handling, no ``iter_cap``/``it0``
+pause and no factor export.  On a CUDA tensor it launches
+``csrc/fused.cu`` (one thread block per instance, which loops until its
+own instance terminates); on a CPU tensor it runs
+``fused_active_set_ref``, a batched torch transliteration of the kernel's
+stages with per-instance freezing, written for clarity.
+
+Each iteration: build the masked subproblem (formLexLSE), factorize level
+by level (panel pivot loop + Gauss elimination of the lower rows), solve
+by backward substitution, form the step, run the ratio test, and when no
+constraint blocks, compute every objective's multipliers by Householder
+replay and pick the constraint to remove.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from ..lexlsi import _is_active, _rhs_of_type
+from ..types import CtrType, TerminationStatus
+from . import _build
+from .panel_lqr import INT_MAX, _SUFFIX, _check_cuda_args, _panel_step
+
+
+class ActiveSetResult(NamedTuple):
+    """Final state per instance; ints are int32 of shape (B,) or (B, m).
+    ``status`` is still UNKNOWN where the factorization budget ran out."""
+
+    x: torch.Tensor
+    v: torch.Tensor
+    dx: torch.Tensor
+    dv: torch.Tensor
+    Ax: torch.Tensor
+    Adx: torch.Tensor
+    ctr_type: torch.Tensor
+    stamp: torch.Tensor
+    next_stamp: torch.Tensor
+    it: torch.Tensor
+    n_act: torch.Tensor
+    n_deact: torch.Tensor
+    n_fact: torch.Tensor
+    status: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+
+def _level_columns(pos, fc, K):
+    """(B, K) physical column at position fc + j (clamped past n-1; only
+    j < rank is ever read)."""
+    B, n = pos.shape
+    inv = torch.empty_like(pos, dtype=torch.long).scatter_(
+        1, pos.long(), torch.arange(n, device=pos.device).expand(B, n).contiguous())
+    idx = (fc[:, None] + torch.arange(K, device=pos.device)).clamp(max=n - 1).long()
+    return inv.gather(1, idx)
+
+
+def _gauss_columns(Bpad, R, rank, K):
+    """L with L R = B by a forward column sweep (``fused.py:96-115``);
+    columns at or beyond the rank are zero."""
+    W = Bpad.clone()
+    for j in range(K):
+        live = (j < rank)[:, None]
+        rjj = R[:, j, j]
+        rjj_safe = torch.where(rjj.abs() > 0, rjj, torch.ones_like(rjj))
+        lj = torch.where(live, W[:, :, j] / rjj_safe[:, None], 0.0)
+        W[:, :, j + 1:] -= lj[:, :, None] * R[:, j, None, j + 1:]
+        W[:, :, j] = lj
+    return W
+
+
+def _backsub(R, seg, rank, K):
+    """y with triu(R) y = seg within one level (``fused.py:118-134``);
+    entries at or beyond the rank are zero."""
+    acc = seg.clone()
+    y = torch.zeros_like(seg)
+    for j in range(K - 1, -1, -1):
+        rjj = R[:, j, j]
+        rjj_safe = torch.where(rjj.abs() > 0, rjj, torch.ones_like(rjj))
+        yj = torch.where(j < rank, acc[:, j] / rjj_safe, 0.0)
+        acc[:, :j] -= yj[:, None] * R[:, :j, j]
+        y[:, j] = yj
+    return y
+
+
+def _check_blocking(ct, Ax, Adx, v, dv, lb, ub, tol_feas):
+    """Ratio test over inactive rows (``fused.py:150-174``), first-minimum
+    tie-break.  Returns (alpha, row (-1 if none), type, blocking)."""
+    B, m = ct.shape
+    iota_m = torch.arange(m, device=ct.device)
+    inactive = ct == int(CtrType.INACTIVE)
+    den = Adx - dv
+    neg = den < -tol_feas
+    pos = den > tol_feas
+    eligible = inactive & (neg | pos)
+    rhs = torch.where(neg, lb, ub)
+    typ = torch.where(neg, int(CtrType.ACTIVE_LB), int(CtrType.ACTIVE_UB))
+    num = rhs - Ax + v
+    ratio = (num / torch.where(eligible, den, 1.0)).clamp_min(0.0)
+    masked = torch.where(eligible, ratio, torch.inf)
+    amin = masked.amin(1)
+    first = eligible & (masked == amin[:, None])
+    row = torch.where(first, iota_m, INT_MAX).amin(1)
+    blocking = (amin < 1.0) & (row < m)
+    alpha = torch.where(blocking, amin, 1.0)
+    btype = torch.where(blocking, typ.gather(1, row.clamp(max=m - 1)[:, None])[:, 0], 0)
+    return alpha, torch.where(blocking, row, -1), btype, blocking
+
+
+def _iteration(A, lb, ub, ct, st, ns, x, v, Ax, *, dims, prio, elig, tol_ld, tol_feas,
+               tol_wrong, tol_correct, deact_first):
+    """One active-set iteration for every instance (``fused.py:270-677``);
+    the caller keeps the results of alive instances only."""
+    B, m, n = A.shape
+    dev, dtype = A.device, A.dtype
+    p = len(dims)
+    iota_m = torch.arange(m, device=dev)
+    active = _is_active(ct)
+    rhs_row = _rhs_of_type(lb, ub, ct)
+
+    # ---- masked LexLSE subproblem (formLexLSE, lexlsi.h:968-982)
+    actf = active.to(dtype)
+    lod = torch.cat([A * actf[:, :, None], (rhs_row * actf)[:, :, None]], 2)
+
+    # ---- factorize: per-level panel pivot loop + Gauss elimination
+    pos = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n).contiguous()
+    ci = torch.zeros(B, dtype=torch.int32, device=dev)
+    levels = []
+    fr = 0
+    for k, dim in enumerate(dims):
+        K = min(dim, n)
+        fc = ci
+        if dim == 0:
+            levels.append(None)
+            continue
+        blk = lod[:, fr:fr + dim]
+        cn = (blk[:, :, :n] * blk[:, :, :n]).sum(1)
+        stopped = torch.zeros(B, dtype=torch.bool, device=dev)
+        hh = torch.zeros(B, dim, dtype=dtype, device=dev)
+        V = torch.zeros(B, K, dim, dtype=dtype, device=dev)
+        for counter in range(dim):
+            blk, cn, pos, _, ci, stopped, _, hh, u_live = _panel_step(
+                counter, blk, cn, pos, None, ci, stopped, None, hh, fr=fr, tol=tol_ld, lean=True)
+            if counter < K:
+                V[:, counter] = u_live
+        lod = torch.cat([lod[:, :fr], blk, lod[:, fr + dim:]], 1)
+        end = ci
+        rank = end - fc
+        colat = _level_columns(pos, fc, K)
+        R = lod[:, fr:fr + K, :n].gather(2, colat[:, None, :].expand(B, K, K))
+        levels.append((fr, dim, K, fc, end, rank, R, V, hh, colat))
+
+        if k < p - 1:
+            below = lod[:, fr + dim:]
+            Mk = below.shape[1]
+            Bpad = below[:, :, :n].gather(2, colat[:, None, :].expand(B, Mk, K))
+            L = _gauss_columns(Bpad, R, rank, K)
+            Up = torch.where(torch.arange(K, device=dev)[None, :, None] < rank[:, None, None],
+                             lod[:, fr:fr + K], 0.0)
+            trail = torch.cat([pos >= end[:, None],
+                               torch.ones(B, 1, dtype=torch.bool, device=dev)], 1)
+            Up = torch.where(trail[:, None, :], Up, 0.0)
+            new_below = below - L @ Up
+            store = (pos >= fc[:, None]) & (pos < end[:, None])
+            rel = (pos - fc[:, None]).clamp(0, K - 1).long()
+            Lscat = L.gather(2, rel[:, None, :].expand(B, Mk, n))
+            new_below = torch.cat(
+                [torch.where(store[:, None, :], Lscat, new_below[:, :, :n]), new_below[:, :, n:]], 2)
+            lod = torch.cat([lod[:, :fr + dim], new_below], 1)
+        fr += dim
+
+    # ---- basic solve: per-level backward substitution (free vars = 0)
+    x_var = torch.zeros(B, n, dtype=dtype, device=dev)
+    for lvl in reversed(levels):
+        if lvl is None:
+            continue
+        fr, dim, K, fc, end, rank, R, V, hh, colat = lvl
+        xt = torch.where(pos >= end[:, None], x_var, 0.0)
+        rows_lvl = lod[:, fr:fr + K]
+        contrib = (rows_lvl[:, :, :n] * xt[:, None, :]).sum(2)
+        seg = torch.where(torch.arange(K, device=dev) < rank[:, None],
+                          rows_lvl[:, :, n] - contrib, 0.0)
+        y = _backsub(R, seg, rank, K)
+        rel = pos - fc[:, None]
+        in_lvl = (rel >= 0) & (rel < K)
+        x_var = x_var + torch.where(in_lvl, y.gather(1, rel.clamp(0, K - 1).long()), 0.0)
+
+    # ---- step and ratio test
+    dx = x_var - x
+    Adx = (A @ dx[:, :, None])[:, :, 0]
+    dv = -v + torch.where(active, Ax + Adx - rhs_row, 0.0)
+    alpha, brow, btype, blocking = _check_blocking(ct, Ax, Adx, v, dv, lb, ub, tol_feas)
+
+    # ---- λ sweep by Householder replay (fused.py:537-579)
+    lam = torch.zeros(B, p, m, dtype=dtype, device=dev)
+    rhs_all = torch.zeros(B, p, n, dtype=dtype, device=dev)
+    jvec = torch.arange(p, device=dev)[None, :, None]
+    for k in range(p - 1, -1, -1):
+        if levels[k] is None:
+            continue
+        fr, dim, K, fc, end, rank, R, V, hh, colat = levels[k]
+        rows_d = torch.arange(dim, device=dev)
+        seg_top = torch.where(rows_d >= rank[:, None], -lod[:, fr:fr + dim, n], 0.0)
+        segs = torch.zeros(B, p, dim, dtype=dtype, device=dev)
+        segs[:, :, :K] = rhs_all.gather(2, colat[:, None, :].expand(B, p, K))
+        segs = torch.where(rows_d[None, None, :] < rank[:, None, None], segs, 0.0)
+        S = torch.where(jvec == k, seg_top[:, None, :], segs)
+        for j in range(K - 1, -1, -1):
+            vj = V[:, j]
+            coef = (S * vj[:, None, :]).sum(2)
+            S = S - hh[:, j, None, None] * coef[:, :, None] * vj[:, None, :]
+        valid = jvec >= k
+        S = torch.where(valid, S, 0.0)
+        lam[:, :, fr:fr + dim] = S
+        contrib = S @ lod[:, fr:fr + dim, :n]
+        below_fc = (pos < fc[:, None])[:, None, :]
+        rhs_all = torch.where(valid & below_fc, rhs_all - contrib, rhs_all)
+
+    # ---- removal selection (lexlsi.h:1048-1139 + CORRECT_SIGN exemption)
+    LB, UB = int(CtrType.ACTIVE_LB), int(CtrType.ACTIVE_UB)
+    sense = ct
+    found = torch.zeros(B, dtype=torch.bool, device=dev)
+    sel_row = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    for j in range(p):
+        vals = lam[:, j]
+        a = torch.where(ct == LB, -vals, vals)
+        consider = (elig[j] != 0) & ((sense == LB) | (sense == UB))
+        mark = consider & (a > tol_correct)
+        wrong = consider & (a < -tol_wrong)
+        sense = torch.where(mark & ~found[:, None], int(CtrType.CORRECT_SIGN_OF_LAMBDA), sense)
+        found_j = wrong.any(1)
+        if deact_first:
+            kmin = torch.where(wrong, st, INT_MAX).amin(1)
+            first = wrong & (st == kmin[:, None])
+        else:
+            amin = torch.where(wrong, a, torch.inf).amin(1)
+            tie = wrong & (a == amin[:, None])
+            pmin = torch.where(tie, prio[j], INT_MAX).amin(1)
+            first = tie & (prio[j] == pmin[:, None])
+        row_j = torch.where(first, iota_m, INT_MAX).amin(1)
+        sel_row = torch.where(found_j & ~found, row_j, sel_row)
+        found = found | found_j
+    want_sweep = ~blocking
+    do_remove = want_sweep & found
+    solved = want_sweep & ~found
+
+    # ---- working-set update and step
+    at_b = blocking[:, None] & (iota_m == brow[:, None])
+    at_r = do_remove[:, None] & (iota_m == sel_row[:, None])
+    new_ct = torch.where(at_b, btype[:, None], torch.where(at_r, int(CtrType.INACTIVE), ct))
+    new_st = torch.where(at_b, ns[:, None], torch.where(at_r, -1, st))
+    afl = torch.where(alpha > 0.0, alpha, 0.0)[:, None]
+    return dict(x=x + afl * dx, v=v + afl * dv, Ax=Ax + afl * Adx, dx=dx, dv=dv, Adx=Adx,
+                ct=new_ct.to(torch.int32), st=new_st.to(torch.int32),
+                blocking=blocking, do_remove=do_remove, solved=solved)
+
+
+def fused_active_set_ref(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, *,
+                         dims, prio, elig, tol_ld, tol_feas, tol_wrong, tol_correct,
+                         max_fact, deact_first) -> ActiveSetResult:
+    """Plain version of :func:`fused_active_set`: iterate until no
+    instance is alive, freezing terminated instances."""
+    B, m, n = A.shape
+    dev, dtype = A.device, A.dtype
+    i32 = dict(dtype=torch.int32, device=dev)
+    ct, st, ns, nf = ctr_type, stamp, next_stamp, n_fact
+    dx = torch.zeros(B, n, dtype=dtype, device=dev)
+    dv = torch.zeros(B, m, dtype=dtype, device=dev)
+    Adx = torch.zeros(B, m, dtype=dtype, device=dev)
+    it, na, nd = (torch.zeros(B, **i32) for _ in range(3))
+    status = torch.full((B,), int(TerminationStatus.UNKNOWN), **i32)
+    kw = dict(dims=dims, prio=prio, elig=elig, tol_ld=tol_ld, tol_feas=tol_feas,
+              tol_wrong=tol_wrong, tol_correct=tol_correct, deact_first=deact_first)
+    while True:
+        alive = (status == int(TerminationStatus.UNKNOWN)) & ((it == 0) | (nf < max_fact))
+        if not bool(alive.any()):
+            break
+        r = _iteration(A, lb, ub, ct, st, ns, x, v, Ax, **kw)
+        a1 = alive[:, None]
+        x, v, Ax = (torch.where(a1, r["x"], x), torch.where(a1, r["v"], v),
+                    torch.where(a1, r["Ax"], Ax))
+        dx, dv, Adx = (torch.where(a1, r["dx"], dx), torch.where(a1, r["dv"], dv),
+                       torch.where(a1, r["Adx"], Adx))
+        ct, st = torch.where(a1, r["ct"], ct), torch.where(a1, r["st"], st)
+        ai = alive.to(torch.int32)
+        status = torch.where(alive & r["solved"], int(TerminationStatus.PROBLEM_SOLVED), status)
+        ns = ns + ai * r["blocking"].to(torch.int32)
+        na = na + ai * r["blocking"].to(torch.int32)
+        nd = nd + ai * r["do_remove"].to(torch.int32)
+        nf = nf + ai * (it > 0).to(torch.int32)
+        it = it + ai
+    return ActiveSetResult(x, v, dx, dv, Ax, Adx, ct, st, ns, it, na, nd, nf,
+                           status.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=64)
+def _level_table(dims: tuple, device: torch.device) -> torch.Tensor:
+    """(2, p) int32 on ``device``: level sizes and first rows, made once
+    per (dims, device) rather than copied to the device at every call."""
+    offs = [0]
+    for d in dims[:-1]:
+        offs.append(offs[-1] + d)
+    return torch.tensor([list(dims), offs], dtype=torch.int32, device=device)
+
+
+def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, *,
+                     dims, prio, elig, tol_ld, tol_feas, tol_wrong, tol_correct,
+                     max_fact, deact_first) -> ActiveSetResult:
+    """Run the active-set loop of a batch to termination.
+
+    A (B, m, n); lb, ub, v, Ax (B, m); x (B, n); ctr_type, stamp (B, m)
+    int32; next_stamp, n_fact (B,) int32; ``dims`` the level sizes;
+    ``prio``/``elig`` (p, m) int32 λ-sweep visit priorities and
+    eligibility.  Launches the CUDA kernel for CUDA tensors, runs the
+    plain version for CPU tensors, and raises otherwise.
+    """
+    kw = dict(dims=dims, prio=prio, elig=elig, tol_ld=tol_ld, tol_feas=tol_feas,
+              tol_wrong=tol_wrong, tol_correct=tol_correct, max_fact=max_fact,
+              deact_first=deact_first)
+    if A.device.type == "cpu":
+        return fused_active_set_ref(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax,
+                                    n_fact, **kw)
+    if A.device.type != "cuda":
+        raise ValueError(f"fused_active_set: unsupported device {A.device}")
+    B, m, n = A.shape
+    p = len(dims)
+    if sum(dims) != m or prio.shape != (p, m) or elig.shape != (p, m):
+        raise ValueError("fused_active_set: dims/prio/elig do not match A")
+    for t, shape in ((lb, (B, m)), (ub, (B, m)), (v, (B, m)), (Ax, (B, m)), (x, (B, n)),
+                     (ctr_type, (B, m)), (stamp, (B, m)), (next_stamp, (B,)), (n_fact, (B,))):
+        if t.shape != shape:
+            raise ValueError(f"fused_active_set: expected shape {shape}, got {tuple(t.shape)}")
+    _check_cuda_args([A, lb, ub, x, v, Ax],
+                     [ctr_type, stamp, next_stamp, n_fact, prio, elig], A.dtype)
+    suffix, c_real = _SUFFIX[A.dtype]
+    dev, dtype = A.device, A.dtype
+    kmax = max(min(d, n) for d in dims)
+    dmax = max(dims)
+    ct, st, ns, nf = ctr_type.clone(), stamp.clone(), next_stamp.clone(), n_fact.clone()
+    x, v, Ax = x.clone(), v.clone(), Ax.clone()
+    dx = torch.empty(B, n, dtype=dtype, device=dev)
+    dv, Adx = torch.empty(B, m, dtype=dtype, device=dev), torch.empty(B, m, dtype=dtype, device=dev)
+    it, na, nd, status = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4))
+    lvl = _level_table(tuple(dims), dev)
+    # per instance (strides as csrc/fused.cu computes them): lod, hh,
+    # column norms, reflection vector, x, multipliers, λ back-propagation,
+    # L rows; then pos, level columns, sense, wrong-sign flags, level
+    # first positions and ranks
+    wstride = m * (n + 1) + m + n + dmax + n + p * m + p * n + m * kmax
+    iwstride = n + p * kmax + 2 * m + 2 * p
+    work = torch.empty(B, wstride, dtype=dtype, device=dev)
+    iwork = torch.empty(B, iwstride, dtype=torch.int32, device=dev)
+    name = f"lexls_fused_active_set_{suffix}"
+    fn = _build.bind(name, (_P,) * 22 + (_I,) * 6 + (c_real,) * 4 + (_I, _I, _P))
+    err = fn(A.data_ptr(), lb.data_ptr(), ub.data_ptr(), ct.data_ptr(), st.data_ptr(),
+             ns.data_ptr(), x.data_ptr(), v.data_ptr(), Ax.data_ptr(), nf.data_ptr(),
+             dx.data_ptr(), dv.data_ptr(), Adx.data_ptr(), it.data_ptr(), na.data_ptr(),
+             nd.data_ptr(), status.data_ptr(), lvl.data_ptr(), prio.data_ptr(),
+             elig.data_ptr(), work.data_ptr(), iwork.data_ptr(),
+             B, m, n, p, kmax, dmax, tol_ld, tol_feas, tol_wrong, tol_correct,
+             int(max_fact), int(bool(deact_first)),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, name)
+    fused_active_set.launches += 1
+    return ActiveSetResult(x, v, dx, dv, Ax, Adx, ct, st, ns, it, na, nd, nf, status)
+
+
+fused_active_set.launches = 0

@@ -1,0 +1,67 @@
+"""Warm-started sequences of related problems (the IK-sequence loop).
+
+Step 0 of each sequence solves cold; step t > 0 starts from step t-1's
+solution and final active set (the warm-start carry ``(x, ctr_type)``).
+Counterpart of ``lexls_tpu/sequence.py``: the JAX package's ``lax.scan``
+over steps is a Python loop here, each step one batched whole solve.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .lexlsi import Structure, full_fp32, solve_core_fused
+from .types import CtrType, ParametersLexLSI
+
+
+def _device_initial_activation(A, lb, ub, guess_type, struct: Structure):
+    """Batched initial (ctr_type, stamp, next_stamp) (``sequence.py:25-50``):
+    equality rows (lb == ub, nonzero normal; simple-bounds rows always)
+    auto-activate first in row order, then the LB/UB guess rows in row
+    order."""
+    B, m, _ = A.shape
+    eq = (lb - ub).abs() < 1e-15
+    nonzero = (A * A).sum(2) > 0
+    is_bound_row = torch.zeros(m, dtype=torch.bool, device=A.device)
+    is_bound_row[: struct.d0] = struct.simple_bounds
+    eq = eq & (nonzero | is_bound_row)
+
+    guess_ok = (guess_type == int(CtrType.ACTIVE_LB)) | (guess_type == int(CtrType.ACTIVE_UB))
+    ctr = torch.where(eq, int(CtrType.ACTIVE_EQ),
+                      torch.where(guess_ok, guess_type, int(CtrType.INACTIVE))).to(torch.int32)
+    n_eq = eq.sum(1, dtype=torch.int32)
+    eq_order = eq.to(torch.int32).cumsum(1, dtype=torch.int32) - 1
+    g = guess_ok & ~eq
+    g_order = g.to(torch.int32).cumsum(1, dtype=torch.int32) - 1
+    stamp = torch.where(eq, eq_order, torch.where(g, n_eq[:, None] + g_order, -1))
+    next_stamp = n_eq + g.sum(1, dtype=torch.int32)
+    return ctr, stamp.to(torch.int32), next_stamp
+
+
+def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
+                                 params: ParametersLexLSI, tracked: bool = False):
+    """Batched warm-started sequences through the whole-solve tier.
+
+    ``A_seq`` is (B, T, m, n), ``lb_seq``/``ub_seq`` (B, T, m).  Returns
+    (x (B, T, n), v (B, T, m), status (B, T), iterations (B, T),
+    factorizations (B, T), ctr_type (B, T, m)), as the JAX package's
+    ``solve_sequence_batched_fused(tracked=False)``.
+    """
+    if tracked:
+        raise NotImplementedError(
+            "tracked=True (the carried-factorization tracker) is not ported yet: "
+            "see ROADMAP.md, queue A, item 6")
+    full_fp32()
+    B, T, m, n = A_seq.shape
+    x = torch.zeros(B, n, dtype=A_seq.dtype, device=A_seq.device)
+    v0 = torch.zeros(B, m, dtype=A_seq.dtype, device=A_seq.device)
+    ct = torch.zeros(B, m, dtype=torch.int32, device=A_seq.device)
+    outs = []
+    for t in range(T):
+        A, lb, ub = (a[:, t].contiguous() for a in (A_seq, lb_seq, ub_seq))
+        c, s, ns = _device_initial_activation(A, lb, ub, ct, struct)
+        st = solve_core_fused(A, lb, ub, c, s, ns, x, v0, reg, struct=struct, params=params,
+                              x_guess_specified=t > 0, v0_specified=False)
+        x, ct = st.x, st.ctr_type
+        outs.append((st.x, st.v, st.status, st.it, st.n_fact, st.ctr_type))
+    return tuple(torch.stack(field, 1) for field in zip(*outs))
