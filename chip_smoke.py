@@ -11,15 +11,26 @@ Phases:
   3. kernel B1 (panel factorization) against its plain version at the
      bench level shape, plus a rank-deficient block, in float64 and float32;
   4. kernel B2 (whole active-set solve) against its plain version on the
-     bench problem, cold and warm, in float64 and float32;
-  5. the main path: ``solve_sequence_batched_fused`` at the bench shape
+     bench problem, cold and warm, in float64 and float32, with its pause
+     (``iter_cap=1``), resume (``it0``) and factor export;
+  5. kernel B2 with simple bounds (``d0 > 0``) against its plain version at
+     the ``test_01`` shape (n=88, 60 bound rows, general levels of 33, 3, 2
+     and 97 rows), then the tracked path over that shape against the fused
+     path (float64, T=3);
+  6. the fused path: ``solve_sequence_batched_fused`` at the bench shape
      (n=100, 4 levels of 30 rows, B=384, T=14, float32, ``bench.py``'s
-     tolerances), with launch counts, correctness checks, and warm solves/s
-     as the slope between T=2 and T=14 (median and spread over 11 rounds)
-     next to the same figure with the warm steps through B2's plain
-     version;
-  6. a ``torch.profiler`` trace of one T=14 sequence: device time per
-     kernel and B2's share of it.
+     tolerances), with launch counts and correctness checks, also against
+     the same sequence with the warm steps through B2's plain version;
+  7. the tracked path, ``tracked=True`` with ``bench.py``'s knobs
+     (``loop_cap=1, ns_iters=2, trip1_noext=True``): launch counts, every
+     solve PROBLEM_SOLVED, per-level residual norms against the fused
+     path's, how many instances each warm step resolved in the tracker and
+     how many it handed to B2; then warm solves/s of both paths as the
+     slope between T=2 and T=14, 11 rounds with the paths interleaved, and
+     one line for ``loop_cap=0``;
+  8. ``torch.profiler`` traces of one T=14 sequence of each path (device
+     time per kernel, B2's share, busy share) and of one tracker trip (its
+     time and its kernel launches).
 
 Prints one JSON line with the per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -38,6 +49,12 @@ import torch
 N_VAR, DIMS, B, T_MAX = 100, (30, 30, 30, 30), 384, 14
 TS = (2, 14)
 REPS = 11  # timing rounds of the main path, as bench.py's repetitions
+TRACKED = dict(loop_cap=1, ns_iters=2, trip1_noext=True)  # bench.py:84-131
+# the test_01 shape: 60 simple bounds, the largest level wider than n
+SB_N, SB_DIMS, SB_B_PLAIN, SB_CAP, SB_T = 88, (60, 33, 3, 2, 97), 16, 12, 3
+# the card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
+# memory rate, and the float32 rate outside the tensor cores
+PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
 
 
 def _cuda_ms(fn, reps):
@@ -54,6 +71,57 @@ def _cuda_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over its memory rate and the operations over its float32
+    rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _sum_dc(r, d, c):
+    """sum over j < r of (d - j)(c - j), elementwise over arrays."""
+    return r * d * c - (d + c) * r * (r - 1) / 2 + (r - 1) * r * (2 * r - 1) / 6
+
+
+def _panel_flops(r, dim, cols):
+    """Floating-point operations of one level's pivot loop with r accepted
+    steps over ``cols`` remaining columns: the column norms, and per step
+    the pivot norm, w = u^T block and the rank-1 update over the trailing
+    columns and the rhs, and the norm downdate."""
+    return 2 * dim * cols + 2 * _sum_dc(r, dim, 1) + 4 * _sum_dc(r, dim, cols + 1) \
+        + 2 * _sum_dc(r, 1, cols)
+
+
+def _active_set_flops(res, dims, n, m):
+    """Floating-point operations that this call's data needed of kernel B2
+    (general levels): per instance, its iterations times one iteration at
+    its exported level ranks (factorize, eliminate, solve, step, ratio
+    test), plus a multiplier sweep for each iteration that did not block."""
+    ranks = res.ranks.double().cpu().numpy()                      # (B, p)
+    its = res.it.double().cpu().numpy()
+    sweeps = its - res.n_act.double().cpu().numpy()
+    p = len(dims)
+    per_it = np.full(len(its), 2.0 * m * n + 8 * m)               # Adx, dv, ratio test
+    per_sweep = np.zeros(len(its))
+    fc = np.zeros(len(its))
+    below = m
+    for k, d in enumerate(dims):
+        r = ranks[:, k]
+        below -= d
+        cols = n - fc
+        per_it += _panel_flops(r, d, cols)
+        per_it += below * r * r + 2 * below * r * (cols + 1 - r)   # L, trailing update
+        per_it += 2 * r * (cols - r) + r * r                      # backward substitution
+        per_sweep += (p - k) * (4 * _sum_dc(r, d, 1) + 2 * d * fc)  # replay, back-propagation
+        fc = fc + r
+    return float((its * per_it + sweeps * per_sweep).sum())
 
 
 def _bench_problem(dtype, dev):
@@ -129,17 +197,85 @@ def check_panel(dev, report):
         plain_ms = _cuda_ms(lambda: panel_factorize_ref(*args, **kw), 3)
         print(f"[B1 {name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call (B={B})")
         if dtype == torch.float32:  # the main path's dtype
-            report["panel_factorize"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            r = got[3].double().cpu().numpy()
+            flops = float(_panel_flops(r, DIMS[0], np.full_like(r, N_VAR)).sum())
+            bound_ms, bound_by = _bound(_nbytes(*args) + _nbytes(*got), flops)
+            print(f"[B1 {name}] bound {bound_ms:.5f} ms by {bound_by} "
+                  f"({flops / 1e6:.2f} MFLOP, {(_nbytes(*args) + _nbytes(*got)) / 1e6:.2f} MB)")
+            report["panel_factorize"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                             bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _state_args(A, s):
+    return (A, s.lb, s.ub, s.ctr_type, s.stamp, s.next_stamp, s.x, s.v, s.Ax, s.n_fact)
+
+
+def _resume_args(A, s, r, max_fact):
+    """B2's arguments to resume from the result ``r`` of a paused call.
+    Status is not an input of the kernel: an instance that finished in
+    that call is parked through its factorization budget, as the tracker's
+    handover parks resolved instances."""
+    nf = torch.where(r.status == -1, r.n_fact, max_fact).to(torch.int32)
+    return (A, s.lb, s.ub, r.ctr_type, r.stamp, r.next_stamp, r.x, r.v, r.Ax, nf, r.it)
+
+
+def _compare_results(label, got, want, exact):
+    """Kernel B2's result against another result of the same call (its
+    plain version's, or an uninterrupted run's): statuses, iteration
+    counts, working sets, stamps, positions and ranks, x, and the exported
+    R on [:rank, :rank] (its error relative to the largest |R| entry, when
+    that exceeds 1: float32 rounds in proportion).  ``exact`` (float64):
+    every integer equal and floats to 1e-8; otherwise statuses equal and
+    floats to 1e-3 where the working sets and pivot orders agree.  Returns
+    the largest |x| error."""
+    same = (got.ctr_type == want.ctr_type).all(1) & (got.posf == want.posf).all(1) \
+        & (got.ranks == want.ranks).all(1)
+    ints_equal = all(bool((getattr(got, f) == getattr(want, f)).all())
+                     for f in ("status", "it", "stamp", "next_stamp", "n_fact"))
+    xerr = float((got.x - want.x).abs().amax(1)[same].max())
+    K = got.rpad.shape[-1]
+    live = torch.arange(K, device=got.rpad.device) < want.ranks[..., None]
+    live2 = (live[..., :, None] & live[..., None, :])[same]
+    rscale = max(1.0, float(torch.where(live2, want.rpad[same], 0.0).abs().max()))
+    rerr = float(torch.where(live2, got.rpad[same] - want.rpad[same], 0.0).abs().max()) / rscale
+    print(f"{label} trajectories differing: {int((~same).sum())}/{len(same)}; counters equal: "
+          f"{ints_equal}; max |x err| {xerr:.3e}, max |R err| / max(1, |R|) on [:rank,:rank] "
+          f"{rerr:.3e} where equal")
+    if exact:
+        ok = bool(same.all()) and ints_equal and xerr <= 1e-8 and rerr <= 1e-8
+    else:
+        ok = bool((got.status == want.status).all()) and xerr <= 1e-3 and rerr <= 1e-3 \
+            and int((~same).sum()) <= len(same) // 10
+    if not ok:
+        raise SystemExit(f"{label} disagrees")
+    return xerr
+
+
+def _print_bound(label, args, kw, res, struct):
+    """Print and return B2's bound for one call: every input and output
+    once over the memory rate, or the operations that the call's
+    iterations needed (at the exported ranks, those of each instance's last
+    iteration) over the float32 rate, whichever is larger."""
+    nbytes = _nbytes(*args, kw["prio"], kw["elig"], *res)
+    flops = _active_set_flops(res, struct.lexlse_dims, N_VAR, struct.m)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    print(f"{label} bound {bound_ms:.5f} ms by {bound_by} ({flops / 1e6:.2f} MFLOP for "
+          f"{int(res.it.sum())} iterations, {nbytes / 1e6:.2f} MB)")
+    return bound_ms, bound_by
 
 
 def check_fused(dev, report):
     """B2 against fused_active_set_ref on the bench problem, cold (step 0)
-    and warm (step 1 from the kernel's step-0 result)."""
+    and warm (step 1 from the kernel's step-0 result): one uninterrupted
+    call, then a call paused by ``iter_cap=1`` and resumed with ``it0``,
+    which must retrace the uninterrupted call, with the exported factors
+    against the plain version's."""
     from lexls_tpu_torch.lexlsi import Structure, active_set_kwargs
     from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
 
     for dtype in (torch.float64, torch.float32):
         name = "f64" if dtype == torch.float64 else "f32"
+        exact = dtype == torch.float64
         prob, params, base, drifts, lb, ub = _bench_problem(dtype, dev)
         struct = Structure.of(prob)
         kw = active_set_kwargs(struct, params, dev)
@@ -148,35 +284,185 @@ def check_fused(dev, report):
         for step in (0, 1):
             A = (base + drifts[step]).contiguous()
             s = _phase1(A, lbs, ubs, struct, params, *(prev or (None, None)))
-            args = (A, s.lb, s.ub, s.ctr_type, s.stamp, s.next_stamp, s.x, s.v, s.Ax, s.n_fact)
+            args = _state_args(A, s)
             got = fused_active_set(*args, **kw)
             want = fused_active_set_ref(*args, **kw)
             torch.cuda.synchronize()
-            same_ws = (got.ctr_type == want.ctr_type).all(1)
-            xerr = float((got.x - want.x).abs().amax(1)[same_ws].max())
             label = f"[B2 {name} {'cold' if step == 0 else 'warm'}]"
             print(f"{label} status(kernel) {torch.bincount(got.status + 1).tolist()} "
                   f"(-1,0,1,2 counts); iterations max {int(got.it.max())} mean "
-                  f"{float(got.it.float().mean()):.3f}; working sets differing: "
-                  f"{int((~same_ws).sum())}/{B}; max |x err| where equal: {xerr:.3e}")
-            if dtype == torch.float64:
-                ok = bool((got.status == want.status).all() and (got.it == want.it).all()
-                          and same_ws.all() and (got.stamp == want.stamp).all()) and xerr <= 1e-8
-            else:
-                ok = bool((got.status == 0).all() and (want.status == 0).all()) and xerr <= 1e-3
-            if not ok:
-                raise SystemExit(f"{label} disagrees with its plain version")
+                  f"{float(got.it.float().mean()):.3f}")
+            xerr = _compare_results(f"{label} kernel against plain:", got, want, exact)
+            if not bool((got.status == 0).all()):
+                raise SystemExit(f"{label} not every instance solved")
+
+            # pause after one iteration, then resume to the end
+            got1 = fused_active_set(*args, iter_cap=1, **kw)
+            want1 = fused_active_set_ref(*args, iter_cap=1, **kw)
+            got2 = fused_active_set(*_resume_args(A, s, got1, kw["max_fact"]), **kw)
+            torch.cuda.synchronize()
+            paused = got1.status == -1
+            print(f"{label} iter_cap=1: paused {int(paused.sum())}/{B}, iterations "
+                  f"{sorted(set(got1.it.tolist()))}")
+            _compare_results(f"{label} iter_cap=1, kernel against plain:", got1, want1, exact)
+            if not bool((got1.it == 1).all()) or not bool(((got1.status == 0) | paused).all()):
+                raise SystemExit(f"{label} iter_cap=1 did not pause after one iteration")
+            # paused instances resumed must end where the uninterrupted call
+            # ended, and their counters sum; finished ones run nothing more
+            if step == 0 and not bool(paused.any()):
+                raise SystemExit(f"{label} no instance paused: the resume was not exercised")
+            if bool(paused.any()):
+                sel = lambda r: type(r)(*(t[paused] for t in r))  # noqa: E731
+                resumed = sel(got2)._replace(n_act=(got1.n_act + got2.n_act)[paused])
+                _compare_results(f"{label} resumed with it0 against uninterrupted:", resumed,
+                                 sel(got), exact)
+                if exact and not bool((resumed.n_act == got.n_act[paused]).all()):
+                    raise SystemExit(f"{label} activations of the two phases do not sum")
+                _compare_results(f"{label} resumed export against the plain version's:",
+                                 resumed, sel(want), exact)
+            done = ~paused
+            if bool(done.any()) and not (
+                    torch.equal(got2.x[done], got1.x[done]) and int(got2.ranks[done].sum()) == 0
+                    and bool((got2.it[done] == got1.it[done]).all())):
+                raise SystemExit(f"{label} a finished instance did not keep its inputs")
+
             if step == 0:
                 ms = _cuda_ms(lambda: fused_active_set(*args, **kw), 3)
-                print(f"{label} kernel {ms:.4f} ms per call (B={B})")
+                ms1 = _cuda_ms(lambda: fused_active_set(*args, iter_cap=1, **kw), 10)
+                print(f"{label} kernel {ms:.4f} ms per call, {ms1:.4f} ms with iter_cap=1 (B={B})")
+                if dtype == torch.float32:
+                    _print_bound(label, args, kw, got, struct)
             else:
                 ms = _cuda_ms(lambda: fused_active_set(*args, **kw), 10)
                 plain_ms = _cuda_ms(lambda: fused_active_set_ref(*args, **kw), 2)
                 print(f"{label} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call (B={B})")
-                if dtype == torch.float32:  # the main path's dtype
-                    report["fused_active_set"].update(max_abs_err=xerr, ms=ms,
-                                                      plain_ms=plain_ms)
+                if dtype == torch.float32:  # the main path's dtype and most frequent call
+                    bound_ms, bound_by = _print_bound(label, args, kw, got, struct)
+                    report["fused_active_set"].update(
+                        max_abs_err=xerr, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
             prev = (got.x, got.ctr_type)
+
+
+def _simple_bounds_problem(steps):
+    """One random hierarchy of the test_01 shape with a simple-bounds level,
+    its structure, and ``steps`` independent perturbations of the general
+    rows for each of B instances, (steps, B, m, n); the bound rows stay
+    unit rows."""
+    from lexls_tpu_torch.lexlsi import Structure
+    from lexls_tpu_torch.oracle import random_inequality_hierarchy
+
+    rng = np.random.default_rng(3)
+    prob = random_inequality_hierarchy(rng, SB_N, list(SB_DIMS), equality_fraction=0.1,
+                                       tight_fraction=0.3, simple_bounds=True)
+    struct = Structure.of(prob)
+    noise = 1e-3 * rng.standard_normal((steps, B) + prob.A.shape)
+    noise[:, :, :struct.d0] = 0.0
+    return prob, struct, noise
+
+
+def check_simple_bounds(dev):
+    """B2 with a simple-bounds level (d0 > 0) against its plain version at
+    the test_01 shape: SB_B_PLAIN instances cold for SB_CAP iterations (a
+    cold solve here takes several hundred, too many for the plain version)
+    and a whole warm step; the kernel also solves B instances cold."""
+    from lexls_tpu_torch.lexlsi import active_set_kwargs
+    from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
+    from lexls_tpu_torch.types import ParametersLexLSI
+
+    prob, struct, noise = _simple_bounds_problem(2)
+    d0 = struct.d0
+    for dtype in (torch.float64, torch.float32):
+        name = "f64" if dtype == torch.float64 else "f32"
+        exact = dtype == torch.float64
+        tols = {} if exact else dict(tol_linear_dependence=1e-7, tol_wrong_sign_lambda=1e-4,
+                                     tol_correct_sign_lambda=1e-6, tol_feasibility=1e-5)
+        params = ParametersLexLSI(max_number_of_factorizations=1000, **tols)
+        kw = active_set_kwargs(struct, params, dev)
+        t = lambda a: torch.as_tensor(a, device=dev).to(dtype)  # noqa: E731
+        A0, A1 = t(prob.A + noise[0]), t(prob.A + noise[1])
+        lbs, ubs = t(np.tile(prob.lb, (B, 1))), t(np.tile(prob.ub, (B, 1)))
+        s = _phase1(A0, lbs, ubs, struct, params)
+        cold = fused_active_set(*_state_args(A0, s), **kw)
+        torch.cuda.synchronize()
+        label = f"[B2 simple bounds {name}]"
+        print(f"{label} n={SB_N} dims={SB_DIMS} (d0={d0}, Kmax={cold.rpad.shape[-1]}), cold "
+              f"B={B}: status {torch.bincount(cold.status + 1).tolist()} (-1,0,1,2); iterations "
+              f"mean {float(cold.it.float().mean()):.2f} max {int(cold.it.max())}; bound rows "
+              f"active at the end, mean {float((cold.ctr_type[:, :d0] != 0).float().sum(1).mean()):.1f}")
+        if not bool((cold.status == 0).all()) or not bool(torch.isfinite(cold.x).all()):
+            raise SystemExit(f"{label} cold solve failed")
+        fixed = (cold.ctr_type[:, :d0] == 1) | (cold.ctr_type[:, :d0] == 3)
+        xb = cold.x[:, list(struct.var_idx)]
+        if float((xb - s.lb[:, :d0]).abs()[fixed].max()) > 1e-4:
+            raise SystemExit(f"{label} a variable fixed at its lower bound is not there")
+
+        Bp = SB_B_PLAIN
+        head = lambda args: tuple(a[:Bp].contiguous() for a in args)  # noqa: E731
+        args = head(_state_args(A0, s))
+        _compare_results(f"{label} cold, iter_cap={SB_CAP}, B={Bp}, kernel against plain:",
+                         fused_active_set(*args, iter_cap=SB_CAP, **kw),
+                         fused_active_set_ref(*args, iter_cap=SB_CAP, **kw), exact)
+        # the warm step: whole in float64; in float32 this degenerate shape
+        # (57 of 60 bounds active) takes hundreds of iterations and some
+        # instances cycle until the budget ends (cycling handling is not
+        # ported), so float32 compares the first SB_CAP iterations and
+        # only reports what the whole step does
+        s1 = _phase1(A1, lbs, ubs, struct, params, cold.x, cold.ctr_type)
+        cap = dict(iter_cap=0 if exact else SB_CAP)
+        what = "warm step" if exact else f"warm step, iter_cap={SB_CAP}"
+        args = head(_state_args(A1, s1))
+        got, want = fused_active_set(*args, **cap, **kw), fused_active_set_ref(*args, **cap, **kw)
+        torch.cuda.synchronize()
+        print(f"{label} {what}, B={Bp}: iterations mean {float(got.it.float().mean()):.2f} "
+              f"max {int(got.it.max())}, removals {int(got.n_deact.sum())}")
+        _compare_results(f"{label} {what}, B={Bp}, kernel against plain:", got, want, exact)
+        if exact and not bool((got.status == 0).all()):
+            raise SystemExit(f"{label} warm step not solved")
+        whole = fused_active_set(*_state_args(A1, s1), **kw)
+        print(f"{label} whole warm step, kernel, B={B}: status "
+              f"{torch.bincount(whole.status + 1).tolist()} (-1,0,1,2; -1 = budget of "
+              f"{params.max_number_of_factorizations} spent); iterations mean "
+              f"{float(whole.it.float().mean()):.2f} max {int(whole.it.max())}")
+        ms = _cuda_ms(lambda: fused_active_set(*_state_args(A1, s1), **cap, **kw), 5)
+        print(f"{label} {what}, kernel {ms:.4f} ms per call (B={B})")
+
+
+def check_tracked_simple_bounds(dev):
+    """The tracked path over a simple-bounds level at the test_01 shape,
+    float64 (float32 cycles at this shape, see ``check_simple_bounds``):
+    B sequences of SB_T steps, a cold solve and warm steps whose general
+    rows drift, against the fused path on the same sequences."""
+    from lexls_tpu_torch import solve_sequence_batched_fused
+    from lexls_tpu_torch.types import ParametersLexLSI
+
+    prob, struct, noise = _simple_bounds_problem(SB_T)
+    params = ParametersLexLSI(max_number_of_factorizations=1000)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    A_seq = t(np.moveaxis(prob.A + np.cumsum(noise, axis=0), 0, 1))  # (B, SB_T, m, n)
+    lb_seq = t(np.broadcast_to(prob.lb, (B, SB_T, prob.n_ctr)).copy())
+    ub_seq = t(np.broadcast_to(prob.ub, (B, SB_T, prob.n_ctr)).copy())
+    run = lambda **kw: solve_sequence_batched_fused(  # noqa: E731
+        A_seq, lb_seq, ub_seq, t(prob.regularization), struct=struct, params=params, **kw)
+    _, v, status, it, _, _ = run()
+    stats = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tx, tv, tstatus, tit, _, _ = run(tracked=True, stats=stats, **TRACKED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nf, nt = _level_norms(v, prob.dims), _level_norms(tv, prob.dims)
+    rel = float(((nt - nf).abs() / (1.0 + nf)).amax())
+    print(f"[tracked path, simple bounds f64] n={SB_N} dims={SB_DIMS} B={B} T={SB_T}: "
+          f"{wall:.3f} s host wall; solved {int((tstatus == 0).sum())}/{B * SB_T} (fused path "
+          f"{int((status == 0).sum())}); iterations per step, mean "
+          f"{[round(float(c), 2) for c in tit.double().mean(0)]} (fused path "
+          f"{[round(float(c), 2) for c in it.double().mean(0)]}); (tracker trips, handed to "
+          f"B2) per step {stats}; per-level |v| against the fused path: max |diff| / (1 + |v|) "
+          f"{rel:.3e}")
+    if not bool((tstatus == 0).all()) or not bool((status == 0).all()) \
+            or not bool(torch.isfinite(tx).all()) or rel > 1e-6:
+        raise SystemExit("tracked path with simple bounds failed or disagrees with the fused path")
 
 
 def _plain_sequence(A_seq, lb_seq, ub_seq, struct, params):
@@ -234,17 +520,34 @@ def _spread(vals):
             f"q3 {q[2]:.4f}, max {max(vals):.4f})")
 
 
-def profile_sequence(run):
+def profile_sequence(label, run):
     """Device time per kernel over one T=T_MAX sequence (torch.profiler)
     and the share of it that B2 takes; busy share against the profiled
     host wall.  Prints 'not measured' when the profiler sees no device
     time."""
+    rows, wall_ms = _profile(lambda: run(T_MAX))
+    total = sum(r[0] for r in rows) / 1e3
+    if total == 0:
+        print(f"[profile {label}] the profiler shows no device time: device shares not measured")
+        return
+    b2 = sum(r[0] for r in rows if "fused_kernel" in r[2]) / 1e3  # csrc/fused.cu
+    print(f"[profile {label}] T={T_MAX} sequence, profiled host wall {wall_ms:.3f} ms; device "
+          f"time {total:.3f} ms ({100 * total / wall_ms:.1f}% of the profiled wall) in "
+          f"{sum(r[1] for r in rows)} kernel launches; B2 {b2:.3f} ms "
+          f"({100 * b2 / total:.1f}% of device time); everything else {total - b2:.3f} ms")
+    for us, count, key in rows[:6]:
+        print(f"  {us / 1e3:10.3f} ms  {count:6d} calls  {key[:90]}")
+
+
+def _profile(fn):
+    """(device-side rows (self device us, count, name), host wall ms) of
+    one call of ``fn`` under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(T_MAX)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -256,21 +559,58 @@ def profile_sequence(run):
     rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
                   reverse=True)
-    total = sum(r[0] for r in rows) / 1e3
-    if total == 0:
-        print("[profile] the profiler shows no device time: device shares not measured")
-        return
-    b2 = sum(r[0] for r in rows if "fused_kernel" in r[2]) / 1e3  # csrc/fused.cu
-    print(f"[profile] T={T_MAX} sequence, profiled host wall {wall_ms:.3f} ms; device time "
-          f"{total:.3f} ms ({100 * total / wall_ms:.1f}% of the profiled wall); B2 "
-          f"{b2:.3f} ms ({100 * b2 / total:.1f}% of device time); everything else "
-          f"{total - b2:.3f} ms")
-    for us, count, key in rows[:8]:
-        print(f"  {us / 1e3:10.3f} ms  {count:6d} calls  {key[:90]}")
+    return rows, wall_ms
 
 
-def run_main_path(dev, report):
-    """The slice's main path at the bench shape, with launch counts."""
+def profile_trip(A_seq, lb_seq, ub_seq, reg, struct, params):
+    """One tracker trip in isolation, the first trip of warm step 1 as
+    ``solve_core_tracked`` runs it with the bench's knobs: its time (CUDA
+    events) and its kernel launches (torch.profiler), beside the same two
+    numbers for the phase 1 that precedes it."""
+    from lexls_tpu_torch import bootstrap_carried, solve_core_fused
+    from lexls_tpu_torch import tracker as trk
+    from lexls_tpu_torch.sequence import _device_initial_activation
+
+    Bn, _, m, n = A_seq.shape
+    dev, dtype = A_seq.device, A_seq.dtype
+    z = lambda *shape: torch.zeros(*shape, dtype=dtype, device=dev)  # noqa: E731
+    A0, A1 = A_seq[:, 0].contiguous(), A_seq[:, 1].contiguous()
+    lb, ub = lb_seq[:, 0].contiguous(), ub_seq[:, 0].contiguous()
+    c, s_, ns = _device_initial_activation(
+        A0, lb, ub, torch.zeros(Bn, m, dtype=torch.int32, device=dev), struct)
+    st0, factors = solve_core_fused(A0, lb, ub, c, s_, ns, z(Bn, n), z(Bn, m), reg,
+                                    struct=struct, params=params, x_guess_specified=False,
+                                    v0_specified=False, return_factors=True)
+    car = bootstrap_carried(factors)
+    phase1 = lambda: _phase1(A1, lb, ub, struct, params, st0.x, st0.ctr_type)  # noqa: E731
+    s1 = phase1()
+    c0 = trk._Trip(s=s1, rinv=car.rinv, pos=car.pos, ranks=car.ranks,
+                   fall=torch.zeros(Bn, dtype=torch.bool, device=dev),
+                   chg_hot=z(Bn, m), chg_sign=z(Bn, 1), chg_c=z(Bn, m - struct.d0),
+                   chg_w=z(Bn, n + 1))
+    trip = lambda: trk._trip(  # noqa: E731
+        c0, A1, struct=struct, params=params, ns_iters=TRACKED["ns_iters"],
+        cert_tol=trk.default_cert_tol(dtype), ext_steps=0, nochg=True)
+    out = trip()
+    resolved = int((out.s.status == 0).sum())
+    for name, fn in (("tracker trip", trip), ("phase 1", phase1)):
+        ms = _cuda_ms(fn, 10)
+        rows, wall_ms = _profile(fn)
+        dev_ms = sum(r[0] for r in rows) / 1e3
+        print(f"[profile {name}] warm step 1, B={Bn}: {ms:.4f} ms per call (CUDA events, "
+              f"median of 10); {sum(r[1] for r in rows)} kernel launches, device time "
+              f"{dev_ms:.4f} ms, profiled host wall {wall_ms:.3f} ms")
+    print(f"[profile tracker trip] resolved {resolved}/{Bn} instances in that trip")
+
+
+def _level_norms(v, dims):
+    edges = np.cumsum([0] + list(dims))
+    return torch.stack([v[..., a:b].norm(dim=-1) for a, b in zip(edges, edges[1:])], -1)
+
+
+def run_main_paths(dev, report):
+    """The fused path and the tracked path at the bench shape, each with
+    its launch counts, then both timed in interleaved rounds."""
     from lexls_tpu_torch import Structure, solve_sequence_batched_fused
     from lexls_tpu_torch.ops import fused_active_set, panel_factorize
 
@@ -282,57 +622,109 @@ def run_main_path(dev, report):
     ub_seq = ub.expand(B, T_MAX, m).contiguous()
     reg = torch.as_tensor(prob.regularization, device=dev)
 
-    def run(T):
+    def run(T, **kw):
         return solve_sequence_batched_fused(A_seq[:, :T], lb_seq[:, :T], ub_seq[:, :T], reg,
-                                            struct=struct, params=params)
+                                            struct=struct, params=params, **kw)
 
-    panel_factorize.launches = fused_active_set.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    x, v, status, it, n_fact, ct = run(T_MAX)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"panel_factorize": panel_factorize.launches,
-                "fused_active_set": fused_active_set.launches}
-    print(f"[main path] B={B} T={T_MAX} float32: {wall:.3f} s host wall (first run); "
-          f"launches {launches}; status counts {torch.bincount(status.flatten() + 1).tolist()} "
-          f"(-1,0,1,2); warm iterations mean {float(it[:, 1:].float().mean()):.4f} max "
-          f"{int(it[:, 1:].max())}; cold iterations mean {float(it[:, 0].float().mean()):.4f}")
-    for k, c in launches.items():
-        report[k]["launches"] = c
-        if c == 0:
-            raise SystemExit(f"main path did not launch {k}")
-    if x.shape != (B, T_MAX, N_VAR) or not bool(torch.isfinite(x).all()) \
-            or not bool(torch.isfinite(v).all()):
-        raise SystemExit("main path: x/v not finite or of the wrong shape")
-    if not bool((status == 0).all()):
-        raise SystemExit("main path: not every solve is PROBLEM_SOLVED")
+    def run_tracked(T, stats=None):
+        return run(T, tracked=True, stats=stats, **TRACKED)
+
+    def drive(label, fn):
+        """One run of a path with the launch counts zeroed just before and
+        read just after; checks shape, finiteness and statuses."""
+        panel_factorize.launches = fused_active_set.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(T_MAX)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"panel_factorize": panel_factorize.launches,
+                    "fused_active_set": fused_active_set.launches}
+        x, v, status, it = out[:4]
+        print(f"[{label}] B={B} T={T_MAX} float32: {wall:.3f} s host wall (first run); "
+              f"launches {launches}; status counts "
+              f"{torch.bincount(status.flatten() + 1).tolist()} (-1,0,1,2); warm iterations "
+              f"mean {float(it[:, 1:].float().mean()):.4f} max {int(it[:, 1:].max())}; cold "
+              f"iterations mean {float(it[:, 0].float().mean()):.4f}")
+        for k, c in launches.items():
+            if c == 0:
+                raise SystemExit(f"{label} did not launch {k}")
+        if x.shape != (B, T_MAX, N_VAR) or not bool(torch.isfinite(x).all()) \
+                or not bool(torch.isfinite(v).all()):
+            raise SystemExit(f"{label}: x/v not finite or of the wrong shape")
+        if not bool((status == 0).all()):
+            raise SystemExit(f"{label}: not every solve is PROBLEM_SOLVED")
+        return out, launches
+
+    (x, v, status, it, n_fact, ct), fused_launches = drive("fused path", run)
 
     # reference: the same sequence with the warm steps through the plain B2
     px, pstatus, pct = _plain_sequence(A_seq, lb_seq, ub_seq, struct, params)
     same = (pct == ct).all(2)
     xerr = float((px - x).abs().amax(2)[same].max())
-    print(f"[main path] against plain warm steps: working sets differing "
+    print(f"[fused path] against plain warm steps: working sets differing "
           f"{int((~same).sum())}/{B * T_MAX}; max |x err| where equal {xerr:.3e}; "
           f"plain statuses solved {int((pstatus == 0).sum())}/{B * T_MAX}")
     if xerr > 1e-3 or not bool((pstatus == 0).all()):
-        raise SystemExit("main path disagrees with its plain reference")
+        raise SystemExit("fused path disagrees with its plain reference")
 
+    # the tracked path, against the fused path's per-level residual norms
+    stats = []
+    (tx, tv, tstatus, tit, _, tct), tracked_launches = drive(
+        "tracked path", lambda T: run_tracked(T, stats))
+    nf, nt = _level_norms(v, prob.dims), _level_norms(tv, prob.dims)
+    rel = ((nt - nf).abs() / (1.0 + nf)).amax()
+    print(f"[tracked path] per-level |v| against the fused path: max |diff| / (1 + |v|) "
+          f"{float(rel):.3e}; final working sets differing {int((tct != ct).any(2).sum())}/"
+          f"{B * T_MAX}")
+    if float(rel) > 1e-3:
+        raise SystemExit("tracked path: per-level residual norms differ from the fused path's")
+    fell = [f for _, f in stats]
+    print(f"[tracked path] cold step: {stats[0][0]} tracker trips, {fell[0]}/{B} instances "
+          f"finished in B2; warm steps: handed to B2 per step {fell[1:]} of {B} (resolved in "
+          f"the tracker: {[B - f for f in fell[1:]]}); share resolved without B2 "
+          f"{1 - sum(fell[1:]) / (B * (T_MAX - 1)):.4f}")
+    for k in report:
+        report[k]["launches"] = tracked_launches[k]
+        report[k]["launches_by_path"] = {"fused": fused_launches[k],
+                                         "tracked": tracked_launches[k]}
+    stats0 = []
+    t0 = time.perf_counter()
+    out0 = run(T_MAX, tracked=True, stats=stats0, **dict(TRACKED, loop_cap=0))
+    torch.cuda.synchronize()
+    print(f"[tracked path, loop_cap=0] {time.perf_counter() - t0:.3f} s host wall; solved "
+          f"{int((out0[2] == 0).sum())}/{B * T_MAX}; trips per warm step "
+          f"{[t for t, _ in stats0[1:]]}; handed to B2 per warm step {[f for _, f in stats0[1:]]}")
+    if not bool((out0[2] == 0).all()):
+        raise SystemExit("tracked path, loop_cap=0: not every solve is PROBLEM_SOLVED")
+
+    # both paths in every round, so that a drift of the clock falls on both
     lo, hi = TS
-    times = _sequence_times(run, (1, lo, hi), REPS)
-    steps, rates = _warm_rate(times, lo, hi)
-    for T in (1, lo, hi):
-        print(f"[main path] kernels, T={T} ms: {_spread(times[T])}")
-    print(f"[main path] kernels, ms per warm step: {_spread(steps)}")
-    print(f"[main path] kernels, warm solves/s over {REPS} rounds: {_spread(rates)}")
+    paths = {"fused": run, "tracked": run_tracked}
+    keys = [(name, T) for name in paths for T in (1, lo, hi)]
+    times = _sequence_times(lambda key: paths[key[0]](key[1]), keys, REPS)
+    rates = {}
+    for name in paths:
+        tn = {T: times[(name, T)] for T in (1, lo, hi)}
+        steps, rates[name] = _warm_rate(tn, lo, hi)
+        for T in (1, lo, hi):
+            print(f"[{name}] T={T} ms: {_spread(tn[T])}")
+        print(f"[{name}] ms per warm step: {_spread(steps)}")
+        print(f"[{name}] warm solves/s over {REPS} rounds: {_spread(rates[name])}")
+    ratio = [a / b for a, b in zip(rates["tracked"], rates["fused"])]
+    print(f"[tracked / fused] warm solves/s ratio per round: {_spread(ratio)}")
+    times_0 = _sequence_times(lambda T: run(T, tracked=True, **dict(TRACKED, loop_cap=0)), TS, 3)
+    print(f"[tracked, loop_cap=0] warm solves/s over 3 rounds: "
+          f"{_spread(_warm_rate(times_0, lo, hi)[1])}")
     times_p = _sequence_times(
         lambda T: _plain_sequence(A_seq[:, :T], lb_seq[:, :T], ub_seq[:, :T], struct, params),
-        TS, 2)
-    steps_p, rates_p = _warm_rate(times_p, lo, hi)
-    print(f"[main path] plain B2 in warm steps, T={lo} ms: {_spread(times_p[lo])}; "
-          f"T={hi} ms: {_spread(times_p[hi])}")
-    print(f"[main path] plain B2 in warm steps, warm solves/s over 2 rounds: {_spread(rates_p)}")
-    profile_sequence(run)
+        TS, 1)
+    _, rates_p = _warm_rate(times_p, lo, hi)
+    print(f"[fused path] plain B2 in warm steps, T={lo} ms: {times_p[lo][0]:.4f}; "
+          f"T={hi} ms: {times_p[hi][0]:.4f}; warm solves/s (1 round): {rates_p[0]:.4f}")
+    profile_sequence("fused path", run)
+    profile_sequence("tracked path", run_tracked)
+    profile_trip(A_seq, lb_seq, ub_seq, reg, struct, params)
 
 
 def main():
@@ -366,14 +758,16 @@ def main():
     report = {
         "panel_factorize": dict(name="panel_factorize", route="cuda",
                                 source="lexls_tpu_torch/csrc/panel_lqr.cu",
-                                replaces="lexls_tpu/ops/pallas_lqr.py:238"),
+                                replaces="lexls_tpu/ops/pallas_lqr.py:238", library_ms=None),
         "fused_active_set": dict(name="fused_active_set", route="cuda",
                                  source="lexls_tpu_torch/csrc/fused.cu",
-                                 replaces="lexls_tpu/ops/fused.py:966"),
+                                 replaces="lexls_tpu/ops/fused.py:966", library_ms=None),
     }
     check_panel(dev, report)
     check_fused(dev, report)
-    run_main_path(dev, report)
+    check_simple_bounds(dev)
+    check_tracked_simple_bounds(dev)
+    run_main_paths(dev, report)
 
     print(json.dumps({"kernels": list(report.values())}))
     print(smi)

@@ -1,8 +1,9 @@
 """lexls_tpu_torch — the PyTorch / CUDA port of lexls_tpu for NVIDIA Hopper.
 
-The port's first slice: the batched, warm-started sequence solve through
-the whole-solve tier, with the level-panel factorization (kernel B1) and
-the whole active-set loop (kernel B2) as hand-written CUDA kernels.  It
+The batched, warm-started sequence solve through the whole-solve tier,
+with the level-panel factorization (kernel B1) and the whole active-set
+loop (kernel B2) as hand-written CUDA kernels, and over them the
+carried-factorization tracker (``tracked=True``).  It
 imports torch and NumPy only; ``lexls_tpu`` (JAX) is the reference that
 the tests hold it against.
 """
@@ -22,8 +23,10 @@ from .types import (
 )
 from .lexlsi import LexLSIState, Structure, solve_core_fused
 from .sequence import solve_sequence_batched_fused
+from .tracker import Carried, bootstrap_carried, solve_core_cold_tracked, solve_core_tracked
 
 __all__ = [
+    "Carried",
     "CtrType",
     "InequalityHierarchy",
     "LexLSError",
@@ -34,7 +37,10 @@ __all__ = [
     "RegularizationType",
     "Structure",
     "TerminationStatus",
+    "bootstrap_carried",
     "build_general_hierarchy",
+    "solve_core_cold_tracked",
     "solve_core_fused",
+    "solve_core_tracked",
     "solve_sequence_batched_fused",
 ]

@@ -59,3 +59,18 @@ def state_to_numpy(state) -> dict:
     return {f.name: getattr(state, f.name).detach().cpu().numpy()
             for f in dataclasses.fields(state)
             if isinstance(getattr(state, f.name), torch.Tensor)}
+
+
+def carried_from_numpy(rinv, pos, ranks, device, dtype=torch.float64):
+    """A :class:`lexls_tpu_torch.tracker.Carried` from the three arrays of
+    a carried factorization (for instance the JAX package's ``Carried``,
+    field by field)."""
+    from .tracker import Carried
+
+    return Carried(*to_torch((np.asarray(rinv), np.asarray(pos), np.asarray(ranks)),
+                             device, dtype))
+
+
+def carried_to_numpy(carried) -> tuple:
+    """``(rinv, pos, ranks)`` of a carried factorization as NumPy arrays."""
+    return tuple(a.detach().cpu().numpy() for a in carried)

@@ -25,6 +25,8 @@ class LexQR:
     ranks      (B, p)      discovered rank per level
     first_col  (B, p)      first position of each level's pivot block
     total_rank (B,)        sum of ranks
+    fixed_mask (B, n)      bool, variables fixed by active simple bounds
+    fixed_val  (B, n)      their values (zero elsewhere)
     """
 
     lod: torch.Tensor
@@ -34,16 +36,21 @@ class LexQR:
     ranks: torch.Tensor
     first_col: torch.Tensor
     total_rank: torch.Tensor
+    fixed_mask: torch.Tensor
+    fixed_val: torch.Tensor
     dims: Tuple[int, ...]
     n_var: int
 
 
 def solve(f: LexQR) -> torch.Tensor:
-    """Basic solution (free variables = 0), batched: one gathered n x n
-    upper-triangular solve per instance, whose row q is the pivot row
-    occupying position q (identity rows beyond ``total_rank``)."""
+    """Basic solution (free variables = 0, fixed variables at their
+    values), batched: one gathered n x n upper-triangular solve per
+    instance, whose row q is the pivot row occupying position q (identity
+    rows beyond ``total_rank``)."""
     B, m, np1 = f.lod.shape
     n = f.n_var
+    if m == 0:  # bounds-only hierarchy: x is the fixed values
+        return f.fixed_val.clone()
     q = torch.arange(n, device=f.lod.device)
     U = f.lod.gather(1, f.rank_row.long()[:, :, None].expand(B, n, np1))
     live = q[None, :] < f.total_rank[:, None]
@@ -51,4 +58,5 @@ def solve(f: LexQR) -> torch.Tensor:
     Utri = torch.where(live[:, :, None], torch.triu(U[:, :, :n]), eye)
     rhs = torch.where(live, U[:, :, n], 0.0)
     x_pos = torch.linalg.solve_triangular(Utri, rhs[:, :, None], upper=True)[:, :, 0]
-    return torch.zeros_like(x_pos).scatter(1, f.perm.long(), x_pos)
+    x = torch.zeros_like(x_pos).scatter(1, f.perm.long(), x_pos)
+    return torch.where(f.fixed_mask, f.fixed_val, x)

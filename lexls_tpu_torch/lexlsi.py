@@ -2,8 +2,9 @@
 
 Counterpart of the parts of ``lexls_tpu/lexlsi.py`` that the fused
 sequence runs: the static ``Structure``, the solver state, phase 1
-(``_initial_state``, ``lexlsi.py:472-551``) and the whole-solve tier
-(``solve_core_fused``/``_fused_tail``, ``lexlsi.py:844-1050``), whose
+(``_initial_state``, ``lexlsi.py:472-551``), the pieces the tracker
+shares with it (``_masked_general``, ``_form_step``) and the whole-solve
+tier (``solve_core_fused``/``_fused_tail``, ``lexlsi.py:844-1050``), whose
 active-set loop is kernel B2 (:mod:`lexls_tpu_torch.ops.fused`).
 
 Every tensor carries a leading batch axis B in place of the JAX
@@ -153,13 +154,36 @@ class LexLSIState:
 # ---------------------------------------------------------------------------
 
 
-def _masked_general(A, lb, ub, ctr_type):
-    """(A_masked, b_masked) of the LexLSE subproblem at the current working
-    set, general levels only (``formLexLSE``, ``lexlsi.py:226-246``):
-    inactive rows are zero."""
+def _fixed_variables(active, rhs_row, d0, var_idx, n):
+    """(fixed_mask (B, n) bool, fixed_val (B, n)): the variables that the
+    active rows of the simple-bounds level fix, and their values
+    (``lexlse.h:132-156``)."""
+    B = active.shape[0]
+    vidx = torch.as_tensor(var_idx, dtype=torch.long, device=active.device)
+    act0 = active[:, :d0]
+    fixed_mask = torch.zeros(B, n, dtype=torch.bool, device=active.device)
+    fixed_mask[:, vidx] = act0
+    fixed_val = torch.zeros(B, n, dtype=rhs_row.dtype, device=active.device)
+    fixed_val[:, vidx] = torch.where(act0, rhs_row[:, :d0], 0.0)
+    return fixed_mask, fixed_val
+
+
+def _masked_general(A, lb, ub, ctr_type, struct: Structure):
+    """(A_masked, b_masked, fixed_mask, fixed_val) of the LexLSE subproblem
+    at the current working set (``formLexLSE``, ``lexlsi.py:226-246``).
+    Active simple-bounds rows become fixed variables; general rows are
+    zero when inactive."""
+    B, _, n = A.shape
     active = _is_active(ctr_type)
     rhs = _rhs_of_type(lb, ub, ctr_type)
-    return A * active[:, :, None].to(A.dtype), rhs * active.to(A.dtype)
+    d0 = struct.d0
+    if struct.simple_bounds:
+        fixed_mask, fixed_val = _fixed_variables(active, rhs, d0, struct.var_idx, n)
+    else:
+        fixed_mask = torch.zeros(B, n, dtype=torch.bool, device=A.device)
+        fixed_val = torch.zeros(B, n, dtype=A.dtype, device=A.device)
+    actg = active[:, d0:].to(A.dtype)
+    return A[:, d0:] * actg[:, :, None], rhs[:, d0:] * actg, fixed_mask, fixed_val
 
 
 def _form_step(A, lb, ub, ctr_type, Ax, v, dx):
@@ -200,6 +224,19 @@ def _form_initial_working_set(ctr_type, stamp, next_stamp, Ax, lb, ub,
     return new_t, stamp, next_stamp
 
 
+def _modify_x_guess(x, ctr_type, lb, ub, struct: Structure):
+    """ensureZeroCtrViolationForSimpleBounds (``objective.h:73-103``,
+    ``lexlsi.py:437-445``): each bounded variable moves onto its active
+    bound, or to the middle of its interval when the row is inactive."""
+    d0 = struct.d0
+    t0 = ctr_type[:, :d0]
+    val = torch.where(t0 == int(CtrType.INACTIVE), 0.5 * (lb[:, :d0] + ub[:, :d0]),
+                      torch.where(t0 == int(CtrType.ACTIVE_LB), lb[:, :d0], ub[:, :d0]))
+    x = x.clone()
+    x[:, list(struct.var_idx)] = val
+    return x
+
+
 def _initialize_v0(ctr_type, Ax, lb, ub, params: ParametersLexLSI):
     """``objective.h:183-237``."""
     t = ctr_type
@@ -236,8 +273,9 @@ def _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
     if x_guess_specified:
         x = x0
     else:
-        Ag, bg = _masked_general(A, lb, ub, ctr_type)
-        f0 = factorize_fast_batched(Ag, bg, struct.lexlse_dims, params.lexlse_parameters())
+        Ag, bg, fixed_mask, fixed_val = _masked_general(A, lb, ub, ctr_type, struct)
+        f0 = factorize_fast_batched(Ag, bg, struct.lexlse_dims, params.lexlse_parameters(),
+                                    fixed_mask=fixed_mask, fixed_val=fixed_val)
         x = lexlse.solve(f0)
     Ax = _matvec(A, x)
     if v0_specified:
@@ -246,6 +284,9 @@ def _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
         if x_guess_specified:
             ctr_type, stamp, next_stamp = _form_initial_working_set(
                 ctr_type, stamp, next_stamp, Ax, lb, ub, params)
+            if struct.simple_bounds and params.modify_x_guess_enabled:
+                x = _modify_x_guess(x, ctr_type, lb, ub, struct)
+                Ax = _matvec(A, x)
         v = _initialize_v0(ctr_type, Ax, lb, ub, params)
     # dx of iteration 0 is recomputed by the loop body itself
     dx = torch.zeros(B, n, dtype=A.dtype, device=dev)
@@ -264,13 +305,11 @@ def _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
 # ---------------------------------------------------------------------------
 
 
-def _check_fused_supported(struct: Structure, params: ParametersLexLSI) -> None:
+def _check_fused_supported(params: ParametersLexLSI) -> None:
     if params.regularization_type != RegularizationType.NONE:
         raise LexLSError("solve_core_fused: regularization is not ported")
     if params.trace_enabled or params.use_phase1_v0:
         raise LexLSError("solve_core_fused: trace/use_phase1_v0 are not ported")
-    if struct.simple_bounds:
-        raise LexLSError("solve_core_fused: simple bounds (d0 > 0) are not ported")
     if params.log_working_set_enabled or params.cycling_handling_enabled:
         raise LexLSError("solve_core_fused: working-set log and cycling handling are not ported")
 
@@ -278,19 +317,21 @@ def _check_fused_supported(struct: Structure, params: ParametersLexLSI) -> None:
 def solve_core_fused(
     A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, reg,
     struct: Structure, params: ParametersLexLSI,
-    x_guess_specified: bool, v0_specified: bool,
-) -> LexLSIState:
+    x_guess_specified: bool, v0_specified: bool, return_factors: bool = False,
+):
     """Whole-solve tier (``lexlsi.py:844-891``): phase 1 in torch, then
     the entire active-set loop in kernel B2.  All arrays carry a leading
     batch axis except ``reg`` (per-level regularization factors, unused
-    since regularization is not ported).  Raises ``LexLSError`` for
-    options the port does not support."""
-    _check_fused_supported(struct, params)
+    since regularization is not ported).  With ``return_factors`` returns
+    ``(state, (rpad, posf, ranks))``, the final factorization that
+    :func:`lexls_tpu_torch.tracker.bootstrap_carried` takes.  Raises
+    ``LexLSError`` for options the port does not support."""
+    _check_fused_supported(params)
     full_fp32()
     A, lb, ub = A.contiguous(), lb.contiguous(), ub.contiguous()
     s = _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
                        struct, params, x_guess_specified, v0_specified)
-    return _fused_tail(A, s, struct=struct, params=params)
+    return _fused_tail(A, s, struct=struct, params=params, return_factors=return_factors)
 
 
 @functools.lru_cache(maxsize=64)
@@ -310,28 +351,34 @@ def active_set_kwargs(struct: Structure, params: ParametersLexLSI, device) -> di
     tables of :func:`_sweep_tables`."""
     prio, elig = _sweep_tables(struct, torch.device(device))
     return dict(
-        dims=struct.lexlse_dims, prio=prio, elig=elig,
+        dims=struct.lexlse_dims, d0=struct.d0,
+        var_idx=struct.var_idx if struct.simple_bounds else (), prio=prio, elig=elig,
         tol_ld=params.tol_linear_dependence, tol_feas=params.tol_feasibility,
         tol_wrong=params.tol_wrong_sign_lambda, tol_correct=params.tol_correct_sign_lambda,
         max_fact=params.max_number_of_factorizations,
         deact_first=params.deactivate_first_wrong_sign)
 
 
-def _fused_tail(A, s: LexLSIState, *, struct: Structure,
-                params: ParametersLexLSI) -> LexLSIState:
+def _fused_tail(A, s: LexLSIState, it0=None, *, struct: Structure, params: ParametersLexLSI,
+                return_factors: bool = False):
     """Run the whole-solve active-set loop (kernel B2) from a phase-1
-    state ``s`` (``lexlsi.py:915-1050`` without compaction: a CUDA block
-    per instance does not wait for the slowest instance of a tile, so the
-    trajectory is the same without it)."""
+    state ``s``, or from a mid-solve state with per-instance iteration
+    counters ``it0`` (``lexlsi.py:915-1050`` without compaction: a CUDA
+    block per instance does not wait for the slowest instance of a tile,
+    so the trajectory is the same without it).  Instances still UNKNOWN
+    afterwards ran out of factorizations."""
     from .ops.fused import fused_active_set
 
     out = fused_active_set(A, s.lb, s.ub, s.ctr_type, s.stamp, s.next_stamp, s.x, s.v,
-                           s.Ax, s.n_fact, **active_set_kwargs(struct, params, A.device))
+                           s.Ax, s.n_fact, it0, **active_set_kwargs(struct, params, A.device))
     status = torch.where(out.status == int(TerminationStatus.UNKNOWN),
                          int(TerminationStatus.MAX_NUMBER_OF_FACTORIZATIONS_EXCEEDED),
                          out.status).to(torch.int32)
-    return dataclasses.replace(
+    state = dataclasses.replace(
         s, x=out.x, v=out.v, dx=out.dx, dv=out.dv, Ax=out.Ax, Adx=out.Adx,
         ctr_type=out.ctr_type, stamp=out.stamp, next_stamp=out.next_stamp,
         it=out.it, n_act=out.n_act, n_deact=out.n_deact, n_fact=out.n_fact,
         status=status)
+    if return_factors:
+        return state, (out.rpad, out.posf, out.ranks)
+    return state

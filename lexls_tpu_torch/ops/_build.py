@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every ``lexls_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, at first
-use, into ``build/lexls_tpu_torch/`` at the root of the checkout.  The
+(``sm_90a``), one ``nvcc`` per source and all started together, and the
+objects are linked into one shared library with a plain C interface, at
+first use, into ``build/lexls_tpu_torch/`` at the root of the checkout.  The
 library is named after a hash of the sources, so an edited source is
 rebuilt and a stale library is never loaded.  It is loaded with
 ``ctypes``: pointers and the CUDA stream go in as ``c_void_p``, and every
@@ -24,7 +25,7 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lexls_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class BuildInfo(NamedTuple):
@@ -54,13 +55,27 @@ def build() -> BuildInfo:
         return BuildInfo(path, 0.0, log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    objects = [tmp.with_name(f"{tmp.name}.{f.stem}.o") for f in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(f)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for f, o in zip(sources, objects)]
+    outputs = [proc.communicate()[0] for proc in procs]  # waits for every compiler
+    log = "".join(outputs)
+    try:
+        for proc, f, out in zip(procs, sources, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {f.name}:\n{out}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+    finally:
+        for o in objects:
+            o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
     log_path.write_text(log)
     os.replace(tmp, path)
     return BuildInfo(path, seconds, log)

@@ -15,7 +15,7 @@ same steps.  ``_panel_step`` is the plain step that both plain versions
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -227,14 +227,18 @@ def factorize_fast_batched(
     b: torch.Tensor,
     dims: Tuple[int, ...],
     params: ParametersLexLSE = ParametersLexLSE(),
+    fixed_mask: Optional[torch.Tensor] = None,
+    fixed_val: Optional[torch.Tensor] = None,
 ):
     """Batched l-QR (``pallas_lqr.py:302-387``): the level panels run
     through :func:`panel_factorize` (kernel B1), the inter-level Gauss
     elimination and the final physicalization as torch ops.
 
-    ``A`` is (B, m, n), ``b`` (B, m).  Returns a batched
-    :class:`lexls_tpu_torch.lexlse.LexQR`.  Regularization and fixed
-    variables (simple bounds) are not ported.
+    ``A`` is (B, m, n), ``b`` (B, m).  ``fixed_mask`` (B, n) bool marks the
+    variables held at ``fixed_val`` (simple bounds): their columns are
+    zeroed and their values folded into the rhs (``lexlse.h:132-156``).
+    Returns a batched :class:`lexls_tpu_torch.lexlse.LexQR`.
+    Regularization is not ported.
     """
     from ..lexlse import LexQR
     from ..lexlsi import full_fp32
@@ -247,7 +251,12 @@ def factorize_fast_batched(
     if sum(dims) != m:
         raise LexLSError(f"dims {dims} do not sum to the row count {m}")
 
-    lod = torch.cat([A, b[:, :, None]], 2).contiguous()
+    if fixed_mask is None:
+        fixed_mask = torch.zeros(B, n, dtype=torch.bool, device=dev)
+        fixed_val = torch.zeros(B, n, dtype=dtype, device=dev)
+    fixed_val = torch.where(fixed_mask, fixed_val, 0.0)
+    rhs = b - (A @ fixed_val[:, :, None])[:, :, 0]
+    lod = torch.cat([torch.where(fixed_mask[:, None, :], 0.0, A), rhs[:, :, None]], 2).contiguous()
 
     hh = torch.zeros(B, m, dtype=dtype, device=dev)
     pos = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n).contiguous()
@@ -282,4 +291,5 @@ def factorize_fast_batched(
     return LexQR(
         lod=lod_phys, hh=hh, perm=col_at, rank_row=rank_row,
         ranks=torch.stack(ranks, 1), first_col=torch.stack(first_cols, 1),
-        total_rank=col_index, dims=tuple(dims), n_var=n)
+        total_rank=col_index, fixed_mask=fixed_mask, fixed_val=fixed_val,
+        dims=tuple(dims), n_var=n)

@@ -1,12 +1,15 @@
 """Warm-started sequences of related problems (the IK-sequence loop).
 
 Step 0 of each sequence solves cold; step t > 0 starts from step t-1's
-solution and final active set (the warm-start carry ``(x, ctr_type)``).
+solution and final active set (the warm-start carry ``(x, ctr_type)``,
+and with ``tracked=True`` the carried factorization as well).
 Counterpart of ``lexls_tpu/sequence.py``: the JAX package's ``lax.scan``
 over steps is a Python loop here, each step one batched whole solve.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -39,29 +42,50 @@ def _device_initial_activation(A, lb, ub, guess_type, struct: Structure):
 
 
 def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
-                                 params: ParametersLexLSI, tracked: bool = False):
+                                 params: ParametersLexLSI, tracked: bool = False,
+                                 ns_iters: int = 2, cert_tol: Optional[float] = None,
+                                 loop_cap: int = 0, trip1_noext: bool = False,
+                                 stats: Optional[list] = None):
     """Batched warm-started sequences through the whole-solve tier.
 
     ``A_seq`` is (B, T, m, n), ``lb_seq``/``ub_seq`` (B, T, m).  Returns
     (x (B, T, n), v (B, T, m), status (B, T), iterations (B, T),
     factorizations (B, T), ctr_type (B, T, m)), as the JAX package's
-    ``solve_sequence_batched_fused(tracked=False)``.
+    ``solve_sequence_batched_fused``.
+
+    ``tracked=True`` also carries the final factorization across steps
+    (:mod:`lexls_tpu_torch.tracker`): the cold step bootstraps it with one
+    capped kernel iteration, and every warm step runs tracker trips over
+    the carried pivot order, falling back to kernel B2 per instance; x and
+    v keep their parity, trajectories may differ where a carry is
+    rejected.  ``ns_iters``, ``cert_tol`` (None: 1e-3 at float32, 1e-9 at
+    float64), ``loop_cap`` and ``trip1_noext`` go to
+    :func:`lexls_tpu_torch.tracker.solve_core_tracked`.  ``stats``, when
+    given, receives one ``(trips, instances handed to the kernel)`` tuple
+    per tracked step.
     """
-    if tracked:
-        raise NotImplementedError(
-            "tracked=True (the carried-factorization tracker) is not ported yet: "
-            "see ROADMAP.md, queue A, item 6")
+    from . import tracker as trk
+
     full_fp32()
     B, T, m, n = A_seq.shape
     x = torch.zeros(B, n, dtype=A_seq.dtype, device=A_seq.device)
     v0 = torch.zeros(B, m, dtype=A_seq.dtype, device=A_seq.device)
     ct = torch.zeros(B, m, dtype=torch.int32, device=A_seq.device)
+    tkw = dict(struct=struct, params=params, ns_iters=ns_iters, cert_tol=cert_tol, stats=stats)
+    carried = None
     outs = []
     for t in range(T):
         A, lb, ub = (a[:, t].contiguous() for a in (A_seq, lb_seq, ub_seq))
         c, s, ns = _device_initial_activation(A, lb, ub, ct, struct)
-        st = solve_core_fused(A, lb, ub, c, s, ns, x, v0, reg, struct=struct, params=params,
-                              x_guess_specified=t > 0, v0_specified=False)
+        if not tracked:
+            st = solve_core_fused(A, lb, ub, c, s, ns, x, v0, reg, struct=struct,
+                                  params=params, x_guess_specified=t > 0, v0_specified=False)
+        elif t == 0:
+            st, carried = trk.solve_core_cold_tracked(A, lb, ub, c, s, ns, x, v0, **tkw)
+        else:
+            st, carried = trk.solve_core_tracked(A, lb, ub, c, s, ns, x, v0, carried=carried,
+                                                 loop_cap=loop_cap, trip1_noext=trip1_noext,
+                                                 **tkw)
         x, ct = st.x, st.ctr_type
         outs.append((st.x, st.v, st.status, st.it, st.n_fact, st.ctr_type))
     return tuple(torch.stack(field, 1) for field in zip(*outs))

@@ -107,14 +107,146 @@ def test_fused_budget_exhaustion_matches_jax():
     dict(use_phase1_v0=True),
     dict(log_working_set_enabled=True),
     dict(cycling_handling_enabled=True),
-    "simple_bounds",
 ])
 def test_fused_rejects_unsupported(bad):
     rng = np.random.default_rng(13)
-    simple = bad == "simple_bounds"
-    prob = jgen.random_inequality_hierarchy(rng, 8, [3, 3], simple_bounds=simple)
-    params = lt.ParametersLexLSI(**({} if simple else bad))
+    prob = jgen.random_inequality_hierarchy(rng, 8, [3, 3])
+    params = lt.ParametersLexLSI(**bad)
     args = convert.to_torch(_inputs(prob, 2, rng), "cpu")
     with pytest.raises(lt.LexLSError):
         lt.solve_core_fused(*args, struct=lt.Structure.of(prob), params=params,
                             x_guess_specified=False, v0_specified=False)
+
+
+@pytest.mark.parametrize("trial", range(4))
+def test_fused_simple_bounds_match_jax(trial):
+    """Hierarchies whose level 0 is simple bounds (d0 > 0): fixed
+    variables in phase 1 and in the active-set loop, their multipliers on
+    the bound rows; cold (even trials) and from a guess, which also runs
+    the x-guess repair on the bounded variables.  Trial 3 has a level
+    with more rows than variables (K = n, as the test_01 shape)."""
+    rng = np.random.default_rng(7100 + trial)
+    n = 7 if trial == 3 else int(rng.integers(6, 12))
+    dims = [int(rng.integers(2, n + 1))] + ([3, 9] if trial == 3 else
+                                            [int(rng.integers(2, 6)) for _ in range(2)])
+    prob = jgen.random_inequality_hierarchy(rng, n, dims, simple_bounds=True,
+                                            equality_fraction=0.2, tight_fraction=0.6)
+    params = JT.ParametersLexLSI(max_number_of_factorizations=100,
+                                 deactivate_first_wrong_sign=trial == 1)
+    x0 = rng.standard_normal(n) if trial % 2 else None
+    inputs = _inputs(prob, 3, rng, x0)
+    inputs[0][:, :prob.dims[0]] = prob.A[:prob.dims[0]]  # bound rows stay unit rows
+    ref, got = _run_pair(prob, params, inputs, x0 is not None)
+    assert int(got.it.max()) > 1
+    assert_state_match(ref, got, trial)
+
+
+def _active_set_pair(prob, params, B, rng, **kw):
+    """Kernel B2 of both packages from one phase-1 state (the port's plain
+    version; the JAX kernel in interpret mode): returns a function
+    ``run(state_arrays, it0, iter_cap) -> (jax outputs, port result)``."""
+    from lexls_tpu.ops import fused as jfused
+    from lexls_tpu_torch.lexlsi import _initial_state, active_set_kwargs
+    from lexls_tpu_torch.ops import fused_active_set
+
+    inputs = _inputs(prob, B, rng)
+    inputs[0][:, :prob.dims[0] * prob.simple_bounds] = prob.A[:prob.dims[0] * prob.simple_bounds]
+    A, lb, ub, c0, s0, n0, x0, v0, _ = convert.to_torch(inputs, "cpu")
+    tstruct, tparams = lt.Structure.of(prob), convert.params_from(params)
+    s = _initial_state(A, lb, ub, c0, s0, n0, x0, v0, tstruct, tparams, False, False)
+    jstruct = jli.Structure.of(prob)
+    p = len(jstruct.lexlse_dims)
+    jkw = dict(
+        dims=jstruct.lexlse_dims, d0=jstruct.d0,
+        var_idx=jstruct.var_idx if jstruct.simple_bounds else (),
+        tol_ld=params.tol_linear_dependence, tol_feas=params.tol_feasibility,
+        tol_wrong=params.tol_wrong_sign_lambda, tol_correct=params.tol_correct_sign_lambda,
+        max_fact=params.max_number_of_factorizations,
+        deact_first=params.deactivate_first_wrong_sign,
+        prio=tuple(tuple(int(q) for q in jstruct.sweep_priority(j)) for j in range(p)),
+        elig=tuple(tuple(bool(e) for e in jstruct.sweep_eligible(j)) for j in range(p)),
+        tile=B, interpret=True)
+    tkw = active_set_kwargs(tstruct, tparams, "cpu")
+
+    def run(state, it0, iter_cap):
+        ct, st, ns, x, v, Ax, nf = state
+        want = jfused.fused_active_set(
+            jnp.asarray(A.numpy()), jnp.asarray(lb.numpy()), jnp.asarray(ub.numpy()),
+            *(jnp.asarray(a.numpy()) for a in (ct, st, ns, x, v, Ax, nf)),
+            it0=None if it0 is None else jnp.asarray(it0.numpy()), iter_cap=iter_cap, **jkw)
+        got = fused_active_set(A, lb, ub, ct, st, ns, x, v, Ax, nf, it0,
+                               iter_cap=iter_cap, **tkw)
+        return want, got
+
+    return run, (s.ctr_type, s.stamp, s.next_stamp, s.x, s.v, s.Ax, s.n_fact)
+
+
+def _assert_active_set_match(want, got, msg):
+    """JAX kernel outputs (a tuple, scalars as (B, 1)) against the port's
+    ActiveSetResult: ints exactly, floats to 1e-9, the exported R on
+    [:rank, :rank] to 1e-9."""
+    for i, f in enumerate(got._fields[:14]):
+        w, g = np.asarray(want[i]), getattr(got, f).numpy()
+        w = w.reshape(g.shape)
+        if g.dtype.kind == "i":
+            np.testing.assert_array_equal(g, w, err_msg=f"{msg}:{f}")
+        else:
+            np.testing.assert_allclose(g, w, atol=1e-9, rtol=0, err_msg=f"{msg}:{f}")
+    rpad, posf, ranks = (np.asarray(a) for a in want[14:17])
+    np.testing.assert_array_equal(got.posf.numpy(), posf, err_msg=f"{msg}:posf")
+    np.testing.assert_array_equal(got.ranks.numpy(), ranks, err_msg=f"{msg}:ranks")
+    assert got.rpad.shape == rpad.shape
+    for b in range(ranks.shape[0]):
+        for k in range(ranks.shape[1]):
+            r = ranks[b, k]
+            np.testing.assert_allclose(got.rpad[b, k, :r, :r].numpy(), rpad[b, k, :r, :r],
+                                       atol=1e-9, rtol=0, err_msg=f"{msg}:rpad[{b},{k}]")
+
+
+@pytest.mark.parametrize("simple", [False, True])
+def test_active_set_pause_resume_and_export_match_jax(simple):
+    """``iter_cap=1`` pauses after one iteration with status UNKNOWN and
+    exports the factorization of the initial working set; resuming with
+    ``it0`` runs to the end and counts a factorization per resumed
+    iteration.  Both calls against the JAX kernel, and their sum against
+    one uninterrupted call."""
+    rng = np.random.default_rng(8200 + simple)
+    prob = jgen.random_inequality_hierarchy(rng, 9, [4, 3, 4], simple_bounds=simple,
+                                            equality_fraction=0.4, tight_fraction=0.6)
+    params = JT.ParametersLexLSI(max_number_of_factorizations=60)
+    run, state0 = _active_set_pair(prob, params, 4, rng)
+    want1, got1 = run(state0, None, 1)
+    _assert_active_set_match(want1, got1, "capped")
+    assert bool((got1.it == 1).all()) and bool((got1.ranks.sum(1) > 0).all())
+    assert set(got1.status.tolist()) <= {-1, 0}
+    state1 = (got1.ctr_type, got1.stamp, got1.next_stamp, got1.x, got1.v, got1.Ax, got1.n_fact)
+    want2, got2 = run(state1, got1.it, 0)
+    _assert_active_set_match(want2, got2, "resumed")
+    _, whole = run(state0, None, 0)
+    unfinished = got1.status == -1
+    assert bool(unfinished.any())
+    for f in ("status", "it", "ctr_type", "stamp", "next_stamp", "n_fact", "posf", "ranks"):
+        a, b = getattr(got2, f)[unfinished], getattr(whole, f)[unfinished]
+        assert torch.equal(a, b), f
+    assert torch.equal((got1.n_act + got2.n_act)[unfinished], whole.n_act[unfinished])
+    assert torch.equal((got1.n_deact + got2.n_deact)[unfinished], whole.n_deact[unfinished])
+    torch.testing.assert_close(got2.x[unfinished], whole.x[unfinished], atol=1e-12, rtol=0)
+
+
+def test_active_set_parked_instance_keeps_its_inputs():
+    """An instance with ``it0 > 0`` and its factorization budget spent is
+    not alive: the call returns its inputs, zero counters, status UNKNOWN
+    and the empty export, as the JAX kernel does."""
+    rng = np.random.default_rng(8300)
+    prob = jgen.random_inequality_hierarchy(rng, 8, [3, 4], tight_fraction=0.6)
+    params = JT.ParametersLexLSI(max_number_of_factorizations=40)
+    run, state0 = _active_set_pair(prob, params, 3, rng)
+    ct, st, ns, x, v, Ax, nf = state0
+    it0 = torch.tensor([0, 2, 0], dtype=torch.int32)
+    nf = torch.where(it0 > 0, 40, nf).to(torch.int32)
+    want, got = run((ct, st, ns, x, v, Ax, nf), it0, 0)
+    _assert_active_set_match(want, got, "parked")
+    assert got.status.tolist()[1] == -1 and got.it.tolist()[1] == 2
+    assert torch.equal(got.x[1], x[1]) and torch.equal(got.ctr_type[1], ct[1])
+    assert torch.equal(got.posf[1], torch.arange(8, dtype=torch.int32))
+    assert float(got.rpad[1].abs().max()) == 0.0 and int(got.ranks[1].sum()) == 0

@@ -43,16 +43,21 @@ def _panel_args(device, dtype, B=32, dim=12, n=20, seed=5):
     return [a.to(device) for a in args]
 
 
-def _fused_problem(device, dtype, B=32, seed=17):
+def _fused_problem(device, dtype, B=32, seed=17, simple=False):
     """Phase-1 state of a cold solve of 4 levels of 6 rows over 20
-    variables, and B2's keyword arguments."""
+    variables (with ``simple``: 8 bound rows, then levels of 6, 25 and 6
+    rows, one of them wider than the 20 variables), and B2's keyword
+    arguments."""
     rng = np.random.default_rng(seed)
-    prob = random_inequality_hierarchy(rng, 20, [6, 6, 6, 6], equality_fraction=0.1,
-                                       tight_fraction=0.5)
+    dims = [8, 6, 25, 6] if simple else [6, 6, 6, 6]
+    prob = random_inequality_hierarchy(rng, 20, dims, equality_fraction=0.1,
+                                       tight_fraction=0.5, simple_bounds=simple)
     struct = lt.Structure.of(prob)
     params = lt.ParametersLexLSI(max_number_of_factorizations=200, **BENCH_TOLS)
     t = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)  # noqa: E731
-    A = t(np.stack([prob.A + 1e-2 * rng.standard_normal(prob.A.shape) for _ in range(B)]))
+    noise = 1e-2 * rng.standard_normal((B,) + prob.A.shape)
+    noise[:, :struct.d0] = 0.0  # bound rows stay unit rows
+    A = t(prob.A + noise)
     lb, ub = t(np.tile(prob.lb, (B, 1))), t(np.tile(prob.ub, (B, 1)))
     m, n = prob.n_ctr, prob.n_var
     c, s, ns = _device_initial_activation(
@@ -119,6 +124,110 @@ def test_fused_kernel_matches_plain(cuda_device, dtype):  # noqa: F811
         assert torch.equal(got.stamp, want.stamp) and torch.equal(got.n_fact, want.n_fact)
     torch.testing.assert_close(got.x[same], want.x[same],
                                atol=1e-8 if dtype == torch.float64 else 1e-3, rtol=0)
+
+
+def _assert_results_equal(got, want, dtype):
+    """B2's kernel against its plain version: float64 trajectories and
+    exports exact in the ints, floats to 1e-8; float32 where the final
+    working sets agree."""
+    assert bool((got.status == want.status).all())
+    same = (got.ctr_type == want.ctr_type).all(1) & (got.posf == want.posf).all(1)
+    if dtype == torch.float64:
+        assert bool(same.all())
+        for f in ("it", "stamp", "next_stamp", "n_act", "n_deact", "n_fact", "ranks"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    tol = 1e-8 if dtype == torch.float64 else 1e-3
+    torch.testing.assert_close(got.x[same], want.x[same], atol=tol, rtol=0)
+    K = got.rpad.shape[-1]
+    live = torch.arange(K, device=got.rpad.device) < want.ranks[..., None]
+    live2 = (live[..., :, None] & live[..., None, :])[same]
+    torch.testing.assert_close(torch.where(live2, got.rpad[same], 0.0),
+                               torch.where(live2, want.rpad[same], 0.0), atol=tol,
+                               rtol=0 if dtype == torch.float64 else 1e-3)
+    return same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("simple", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_kernel_pause_resume_export(cuda_device, dtype, simple):  # noqa: F811
+    """``iter_cap=1`` then a resume with ``it0``, each against the plain
+    version, and together against one uninterrupted launch; with
+    ``simple`` the same over a simple-bounds level (d0 > 0)."""
+    args, kw = _fused_problem(cuda_device, dtype, simple=simple)
+    got1 = fused_active_set(*args, iter_cap=1, **kw)
+    want1 = fused_active_set_ref(*args, iter_cap=1, **kw)
+    torch.cuda.synchronize()
+    _assert_results_equal(got1, want1, dtype)
+    assert bool((got1.it == 1).all()) and bool((got1.status == -1).any())
+    # status is not an input: finished instances are parked through the budget
+    nf = torch.where(got1.status == -1, got1.n_fact, kw["max_fact"]).to(torch.int32)
+    args2 = (args[0], args[1], args[2], got1.ctr_type, got1.stamp, got1.next_stamp, got1.x,
+             got1.v, got1.Ax, nf, got1.it)
+    got2 = fused_active_set(*args2, **kw)
+    want2 = fused_active_set_ref(*args2, **kw)
+    whole = fused_active_set(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_results_equal(got2, want2, dtype)
+    paused = got1.status == -1
+    if dtype == torch.float64:
+        for f in ("status", "it", "ctr_type", "stamp", "n_fact", "posf", "ranks"):
+            assert torch.equal(getattr(got2, f)[paused], getattr(whole, f)[paused]), f
+        assert torch.equal((got1.n_act + got2.n_act)[paused], whole.n_act[paused])
+        torch.testing.assert_close(got2.x[paused], whole.x[paused], atol=1e-10, rtol=0)
+    # an instance that finished in the first launch runs nothing in the
+    # second: its inputs come back with the empty export
+    done = ~paused
+    if bool(done.any()):
+        assert torch.equal(got2.x[done], got1.x[done])
+        assert int(got2.ranks[done].sum()) == 0 and float(got2.rpad[done].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_kernel_simple_bounds_matches_plain(cuda_device, dtype):  # noqa: F811
+    args, kw = _fused_problem(cuda_device, dtype, simple=True)
+    assert kw["d0"] == 8 and len(kw["var_idx"]) == 8
+    got = fused_active_set(*args, **kw)
+    want = fused_active_set_ref(*args, **kw)
+    torch.cuda.synchronize()
+    same = _assert_results_equal(got, want, dtype)
+    assert bool((got.status == 0).all()) and int(got.it.max()) > 2
+    assert int(same.sum()) >= (len(same) if dtype == torch.float64 else len(same) // 2)
+
+
+@pytest.mark.cuda
+def test_tracked_sequence_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
+    """The tracked sequence through the kernels against the same sequence
+    on the CPU (float64: the same decisions; x to 1e-8)."""
+    rng = np.random.default_rng(29)
+    prob = random_inequality_hierarchy(rng, 16, [4, 5, 5, 5], equality_fraction=0.1,
+                                       tight_fraction=0.4, simple_bounds=True)
+    B, T = 16, 4
+    d = 3e-3 * np.cumsum(rng.standard_normal((B, T) + prob.A.shape), axis=1)
+    d[:, :, :4] = 0.0
+    A_seq = prob.A + d
+    lb_seq = np.broadcast_to(prob.lb, (B, T, prob.n_ctr)).copy()
+    ub_seq = np.broadcast_to(prob.ub, (B, T, prob.n_ctr)).copy()
+    params = lt.ParametersLexLSI(max_number_of_factorizations=100)
+    struct = lt.Structure.of(prob)
+
+    def run(device):
+        t = [torch.as_tensor(a, device=device)
+             for a in (A_seq, lb_seq, ub_seq, prob.regularization)]
+        return lt.solve_sequence_batched_fused(*t, struct=struct, params=params, tracked=True,
+                                               loop_cap=1)
+
+    fused_active_set.launches = 0
+    got = run(cuda_device)
+    assert fused_active_set.launches >= 1  # the cold bootstrap always launches B2
+    want = run("cpu")
+    assert bool((got[2] == 0).all())
+    for g, w in zip(got, want):
+        if g.dtype.is_floating_point:
+            torch.testing.assert_close(g.cpu(), w, atol=1e-8, rtol=0)
+        else:
+            assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda

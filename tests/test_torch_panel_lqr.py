@@ -71,3 +71,32 @@ def test_factorize_and_solve_match_jax(ranks):
     np.testing.assert_allclose(ft.hh.numpy(), np.asarray(fv.hh), atol=1e-12, rtol=0)
     np.testing.assert_allclose(tle.solve(ft).numpy(), np.asarray(jax.vmap(jle.solve)(fv)),
                                atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_factorize_with_fixed_variables_matches_jax(seed):
+    """Fixed variables (active simple bounds): their columns are zeroed,
+    their values folded into the rhs, and the solve returns them."""
+    rng = np.random.default_rng(50 + seed)
+    dims, B, n = (4, 3, 3), 4, 9
+    As, bs = zip(*(tgen.random_equality_hierarchy(rng, n, dims, (3, 2, 2))[:2]
+                   for _ in range(B)))
+    As, bs = np.stack(As), np.stack(bs)
+    mask = rng.random((B, n)) < 0.3
+    mask[0] = False
+    val = rng.standard_normal((B, n))  # values outside the mask must be ignored
+    params = ParametersLexLSE()
+    fj = jpl.factorize_fast_batched(jnp.asarray(As), jnp.asarray(bs), dims, params,
+                                    fixed_mask=jnp.asarray(mask), fixed_val=jnp.asarray(val),
+                                    use_pallas=False)
+    ft = factorize_fast_batched(torch.as_tensor(As), torch.as_tensor(bs), dims,
+                                fixed_mask=torch.as_tensor(mask), fixed_val=torch.as_tensor(val))
+    for f in ("perm", "rank_row", "ranks", "first_col", "total_rank", "fixed_mask"):
+        np.testing.assert_array_equal(getattr(ft, f).numpy(), np.asarray(getattr(fj, f)),
+                                      err_msg=f)
+    for f in ("lod", "hh", "fixed_val"):
+        np.testing.assert_allclose(getattr(ft, f).numpy(), np.asarray(getattr(fj, f)),
+                                   atol=1e-12, rtol=0, err_msg=f)
+    x = tle.solve(ft)
+    np.testing.assert_allclose(x.numpy(), np.asarray(jax.vmap(jle.solve)(fj)), atol=1e-10, rtol=0)
+    assert torch.equal(x[torch.as_tensor(mask)], torch.as_tensor(val)[torch.as_tensor(mask)])

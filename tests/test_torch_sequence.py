@@ -1,8 +1,9 @@
-"""The port's slice end to end: warm-started sequences through the
+"""The fused sequence end to end: warm-started sequences through the
 whole-solve tier against the JAX package's
 ``solve_sequence_batched_fused(tracked=False)`` (its Pallas kernel in
-interpret mode).  Float64: statuses, iterations, factorizations and final
-working sets equal; x and v to atol 1e-9."""
+interpret mode; the tracked sequence is in ``test_torch_tracker.py``).
+Float64: statuses, iterations, factorizations and final working sets
+equal; x and v to atol 1e-9."""
 
 import jax
 import jax.numpy as jnp
@@ -68,10 +69,3 @@ def test_sequence_matches_jax(deact_first):
         else:
             np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=str(i))
 
-
-def test_tracked_is_not_ported():
-    prob, A_seq, lb_seq, ub_seq = _sequence(5, 1, 1, 4, [2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.solve_sequence_batched_fused(
-            *convert.to_torch((A_seq, lb_seq, ub_seq, prob.regularization), "cpu"),
-            struct=lt.Structure.of(prob), params=lt.ParametersLexLSI(), tracked=True)
