@@ -12,25 +12,41 @@ Phases:
      bench level shape, plus a rank-deficient block, in float64 and float32;
   4. kernel B2 (whole active-set solve) against its plain version on the
      bench problem, cold and warm, in float64 and float32, with its pause
-     (``iter_cap=1``), resume (``it0``) and factor export;
+     (``iter_cap=1``), resume (``it0``) and factor export; in float64 with
+     the working-set log and cycling handling on (log, detector and
+     bounds identical, also across a pause) and against the same launch
+     with them off; timed with the log on and with both on beside the
+     times with them off, the warm call also under ``torch.profiler``,
+     which tells the kernel's own device time from its wrapper's copies;
   5. kernel B2 with simple bounds (``d0 > 0``) against its plain version at
      the ``test_01`` shape (n=88, 60 bound rows, general levels of 33, 3, 2
      and 97 rows), then the tracked path over that shape against the fused
      path (float64, T=3);
-  6. the fused path: ``solve_sequence_batched_fused`` at the bench shape
+  6. B2 against ``solve_core_batched`` (the exact tier, kernel B1 in every
+     iteration) on the cold bench problem in float64 with log and cycling
+     handling on: decisions and logs equal, B1's launches counted; the
+     frozen cycling fixture through the kernel; the ``test_01`` shape in
+     float32, warm step, with cycling handling off and on, and what the
+     logs of the solves that spend their budget show;
+  7. the fused path: ``solve_sequence_batched_fused`` at the bench shape
      (n=100, 4 levels of 30 rows, B=384, T=14, float32, ``bench.py``'s
      tolerances), with launch counts and correctness checks, also against
      the same sequence with the warm steps through B2's plain version;
-  7. the tracked path, ``tracked=True`` with ``bench.py``'s knobs
+  8. the tracked path, ``tracked=True`` with ``bench.py``'s knobs
      (``loop_cap=1, ns_iters=2, trip1_noext=True``): launch counts, every
      solve PROBLEM_SOLVED, per-level residual norms against the fused
      path's, how many instances each warm step resolved in the tracker and
      how many it handed to B2; then warm solves/s of both paths as the
      slope between T=2 and T=14, 11 rounds with the paths interleaved, and
      one line for ``loop_cap=0``;
-  8. ``torch.profiler`` traces of one T=14 sequence of each path (device
+  9. ``torch.profiler`` traces of one T=14 sequence of each path (device
      time per kernel, B2's share, busy share) and of one tracker trip (its
-     time and its kernel launches).
+     time and its kernel launches);
+ 10. the fused path with log and cycling handling on (T=3) against the
+     same with them off, and the exact tier's sequence,
+     ``solve_sequence_batched_native`` (T=3): every solve PROBLEM_SOLVED,
+     per-level residual norms against the fused path's, cold and warm
+     time, B1's launches and its share of the device time.
 
 Prints one JSON line with the per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -210,13 +226,15 @@ def _state_args(A, s):
     return (A, s.lb, s.ub, s.ctr_type, s.stamp, s.next_stamp, s.x, s.v, s.Ax, s.n_fact)
 
 
-def _resume_args(A, s, r, max_fact):
-    """B2's arguments to resume from the result ``r`` of a paused call.
-    Status is not an input of the kernel: an instance that finished in
-    that call is parked through its factorization budget, as the tracker's
-    handover parks resolved instances."""
+def _resume_args(A, r, max_fact):
+    """B2's arguments to resume from the result ``r`` of a paused call,
+    its bounds, log and detector included.  Status is not an input of the
+    kernel: an instance that finished in that call is parked through its
+    factorization budget, as the tracker's handover parks resolved
+    instances."""
     nf = torch.where(r.status == -1, r.n_fact, max_fact).to(torch.int32)
-    return (A, s.lb, s.ub, r.ctr_type, r.stamp, r.next_stamp, r.x, r.v, r.Ax, nf, r.it)
+    return (A, r.lb, r.ub, r.ctr_type, r.stamp, r.next_stamp, r.x, r.v, r.Ax, nf, r.it,
+            r[19:27], r[27:31])
 
 
 def _compare_results(label, got, want, exact):
@@ -251,12 +269,43 @@ def _compare_results(label, got, want, exact):
     return xerr
 
 
+_LOG_FIELDS = ("lb", "ub", "log_obj", "log_ctr", "log_type", "log_value", "log_rank",
+               "log_cycling", "log_len", "log_overflow", "cyc_counter", "cyc_prev_op",
+               "cyc_prev_row", "cyc_prev_type")
+
+
+def _compare_logs(label, got, want):
+    """The bounds, the working-set log and the cycling detector of two
+    float64 results: every integer and the bounds equal, the logged values
+    to 1e-8."""
+    bad = [f for f in _LOG_FIELDS if f != "log_value"
+           and not torch.equal(getattr(got, f), getattr(want, f))]
+    verr = float((got.log_value - want.log_value).abs().max()) if got.log_value.numel() else 0.0
+    print(f"{label} log entries {int(got.log_len.sum())} (longest {int(got.log_len.max())}), "
+          f"overflows {int(got.log_overflow.sum())}, detections {int(got.cyc_counter.sum())}; "
+          f"fields differing: {bad or 'none'}; max |log value err| {verr:.3e}")
+    if bad or verr > 1e-8:
+        raise SystemExit(f"{label} log, detector or bounds disagree")
+
+
+def _rows(r, mask):
+    return type(r)(*(t[mask] for t in r))
+
+
 def _print_bound(label, args, kw, res, struct):
     """Print and return B2's bound for one call: every input and output
     once over the memory rate, or the operations that the call's
     iterations needed (at the exported ranks, those of each instance's last
-    iteration) over the float32 rate, whichever is larger."""
-    nbytes = _nbytes(*args, kw["prio"], kw["elig"], *res)
+    iteration) over the float32 rate, whichever is larger.  The relaxed
+    bounds and the detector are outputs only under cycling handling and
+    the log only when it is on: otherwise the result carries the input
+    bounds themselves and placeholders that the kernel never touches."""
+    outs = list(res[:17])
+    if kw["log_cap"]:
+        outs += res[19:27]
+    if kw["cycling"]:
+        outs += [res.lb, res.ub, *res[27:31]]
+    nbytes = _nbytes(*args, kw["prio"], kw["elig"], *outs)
     flops = _active_set_flops(res, struct.lexlse_dims, N_VAR, struct.m)
     bound_ms, bound_by = _bound(nbytes, flops)
     print(f"{label} bound {bound_ms:.5f} ms by {bound_by} ({flops / 1e6:.2f} MFLOP for "
@@ -264,12 +313,41 @@ def _print_bound(label, args, kw, res, struct):
     return bound_ms, bound_by
 
 
+def _options_device_time(label, args, kws, calls=10):
+    """B2's own device time per call under each set of options, and beside
+    it the device time of everything else its wrapper launches (the copies
+    of the state, and of the log, the detector and the bounds when their
+    option is on), from a torch.profiler trace of ``calls`` calls: the
+    CUDA-event times of the wrapper cannot tell the two apart, nor either
+    from the host's time to issue the copies."""
+    from lexls_tpu_torch.ops import fused_active_set
+
+    for what, kw in kws:
+        rows, wall_ms = _profile(lambda: [fused_active_set(*args, **kw) for _ in range(calls)])
+        total = sum(r[0] for r in rows) / 1e3
+        if total == 0:
+            print(f"{label} the profiler shows no device time: the kernel's own time under "
+                  f"the options not measured")
+            return
+        kern = sum(r[0] for r in rows if "fused_kernel" in r[2]) / 1e3  # csrc/fused.cu
+        others = sum(r[1] for r in rows if "fused_kernel" not in r[2])
+        print(f"{label} options {what}: device time per call, kernel {kern / calls:.4f} ms, "
+              f"the wrapper's {others // calls} other launches {(total - kern) / calls:.4f} ms; "
+              f"profiled host wall {wall_ms / calls:.4f} ms per call")
+
+
 def check_fused(dev, report):
     """B2 against fused_active_set_ref on the bench problem, cold (step 0)
     and warm (step 1 from the kernel's step-0 result): one uninterrupted
     call, then a call paused by ``iter_cap=1`` and resumed with ``it0``,
     which must retrace the uninterrupted call, with the exported factors
-    against the plain version's."""
+    against the plain version's.  In float64 both run with the working-set
+    log and cycling handling on (and the kernel also with them off, which
+    must not change its trajectory), so the pause carries the log and the
+    detector across; float32 runs them off and times the kernel with the
+    log on and with both on beside that."""
+    import dataclasses
+
     from lexls_tpu_torch.lexlsi import Structure, active_set_kwargs
     from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
 
@@ -278,7 +356,13 @@ def check_fused(dev, report):
         exact = dtype == torch.float64
         prob, params, base, drifts, lb, ub = _bench_problem(dtype, dev)
         struct = Structure.of(prob)
-        kw = active_set_kwargs(struct, params, dev)
+        kw_off = active_set_kwargs(struct, params, dev)
+        kw_log = active_set_kwargs(
+            struct, dataclasses.replace(params, log_working_set_enabled=True), dev)
+        kw_both = active_set_kwargs(
+            struct, dataclasses.replace(params, log_working_set_enabled=True,
+                                        cycling_handling_enabled=True), dev)
+        kw = kw_both if exact else kw_off
         lbs, ubs = lb.expand(B, -1).contiguous(), ub.expand(B, -1).contiguous()
         prev = None
         for step in (0, 1):
@@ -289,6 +373,16 @@ def check_fused(dev, report):
             want = fused_active_set_ref(*args, **kw)
             torch.cuda.synchronize()
             label = f"[B2 {name} {'cold' if step == 0 else 'warm'}]"
+            if exact:
+                label += " log+cycling"
+                _compare_logs(f"{label} kernel against plain:", got, want)
+                off = fused_active_set(*args, **kw_off)
+                same_off = all(torch.equal(a, b) for a, b in zip(got[:17], off[:17]))
+                print(f"{label} the kernel with both options off: results identical "
+                      f"{same_off}; log rows {tuple(off.log_obj.shape)}")
+                if not same_off or int(got.cyc_counter.sum()) != 0:
+                    # no cycle occurs here, so the options may only record
+                    raise SystemExit(f"{label} the options changed the trajectory")
             print(f"{label} status(kernel) {torch.bincount(got.status + 1).tolist()} "
                   f"(-1,0,1,2 counts); iterations max {int(got.it.max())} mean "
                   f"{float(got.it.float().mean()):.3f}")
@@ -299,7 +393,7 @@ def check_fused(dev, report):
             # pause after one iteration, then resume to the end
             got1 = fused_active_set(*args, iter_cap=1, **kw)
             want1 = fused_active_set_ref(*args, iter_cap=1, **kw)
-            got2 = fused_active_set(*_resume_args(A, s, got1, kw["max_fact"]), **kw)
+            got2 = fused_active_set(*_resume_args(A, got1, kw["max_fact"]), **kw)
             torch.cuda.synchronize()
             paused = got1.status == -1
             print(f"{label} iter_cap=1: paused {int(paused.sum())}/{B}, iterations "
@@ -312,10 +406,13 @@ def check_fused(dev, report):
             if step == 0 and not bool(paused.any()):
                 raise SystemExit(f"{label} no instance paused: the resume was not exercised")
             if bool(paused.any()):
-                sel = lambda r: type(r)(*(t[paused] for t in r))  # noqa: E731
+                sel = lambda r: _rows(r, paused)  # noqa: E731
                 resumed = sel(got2)._replace(n_act=(got1.n_act + got2.n_act)[paused])
                 _compare_results(f"{label} resumed with it0 against uninterrupted:", resumed,
                                  sel(got), exact)
+                if exact:
+                    _compare_logs(f"{label} resumed with it0, log_state, cyc_state against "
+                                  f"uninterrupted:", resumed, sel(got))
                 if exact and not bool((resumed.n_act == got.n_act[paused]).all()):
                     raise SystemExit(f"{label} activations of the two phases do not sum")
                 _compare_results(f"{label} resumed export against the plain version's:",
@@ -326,21 +423,32 @@ def check_fused(dev, report):
                     and bool((got2.it[done] == got1.it[done]).all())):
                 raise SystemExit(f"{label} a finished instance did not keep its inputs")
 
+            reps = 3 if step == 0 else 10
             if step == 0:
-                ms = _cuda_ms(lambda: fused_active_set(*args, **kw), 3)
+                ms = _cuda_ms(lambda: fused_active_set(*args, **kw), reps)
                 ms1 = _cuda_ms(lambda: fused_active_set(*args, iter_cap=1, **kw), 10)
                 print(f"{label} kernel {ms:.4f} ms per call, {ms1:.4f} ms with iter_cap=1 (B={B})")
                 if dtype == torch.float32:
                     _print_bound(label, args, kw, got, struct)
             else:
-                ms = _cuda_ms(lambda: fused_active_set(*args, **kw), 10)
+                ms = _cuda_ms(lambda: fused_active_set(*args, **kw), reps)
                 plain_ms = _cuda_ms(lambda: fused_active_set_ref(*args, **kw), 2)
                 print(f"{label} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call (B={B})")
-                if dtype == torch.float32:  # the main path's dtype and most frequent call
-                    bound_ms, bound_by = _print_bound(label, args, kw, got, struct)
-                    report["fused_active_set"].update(
-                        max_abs_err=xerr, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by)
+            # the options' cost: off, log on, both on, off again, in turns
+            turns = [_cuda_ms(lambda k=k: fused_active_set(*args, **k), reps)
+                     for k in (kw_off, kw_log, kw_both, kw_off)]
+            print(f"{label.split(' log')[0]} kernel ms per call with the options off / log on "
+                  f"/ log and cycling on / off again: "
+                  f"{' / '.join(f'{t:.4f}' for t in turns)}")
+            if step == 1:
+                _options_device_time(label.split(' log')[0], args,
+                                     (("off", kw_off), ("log on", kw_log),
+                                      ("log and cycling on", kw_both), ("off again", kw_off)))
+            if step == 1 and dtype == torch.float32:  # the main path's most frequent call
+                bound_ms, bound_by = _print_bound(label, args, kw, got, struct)
+                report["fused_active_set"].update(
+                    max_abs_err=xerr, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
             prev = (got.x, got.ctr_type)
 
 
@@ -405,9 +513,9 @@ def check_simple_bounds(dev):
                          fused_active_set_ref(*args, iter_cap=SB_CAP, **kw), exact)
         # the warm step: whole in float64; in float32 this degenerate shape
         # (57 of 60 bounds active) takes hundreds of iterations and some
-        # instances cycle until the budget ends (cycling handling is not
-        # ported), so float32 compares the first SB_CAP iterations and
-        # only reports what the whole step does
+        # instances cycle until the budget ends (measure_test01_cycling
+        # looks at them), so float32 compares the first SB_CAP iterations
+        # and only reports what the whole step does
         s1 = _phase1(A1, lbs, ubs, struct, params, cold.x, cold.ctr_type)
         cap = dict(iter_cap=0 if exact else SB_CAP)
         what = "warm step" if exact else f"warm step, iter_cap={SB_CAP}"
@@ -463,6 +571,175 @@ def check_tracked_simple_bounds(dev):
     if not bool((tstatus == 0).all()) or not bool((status == 0).all()) \
             or not bool(torch.isfinite(tx).all()) or rel > 1e-6:
         raise SystemExit("tracked path with simple bounds failed or disagrees with the fused path")
+
+
+def check_exact_tier(dev):
+    """B2 against ``solve_core_batched`` on the card: the cold bench
+    problem in float64 with the working-set log and cycling handling on.
+    The exact tier factorizes through kernel B1 and does the rest of the
+    iteration in torch, so it shares no stage with B2: statuses, iteration
+    counts, working sets, logs and detector state must be equal, x and v
+    to 1e-8.  B1 is launched once per level by the cold phase 1 and once
+    per level in every pass of the loop, and a pass runs while any
+    instance is alive."""
+    import dataclasses
+
+    from lexls_tpu_torch import Structure, batched_initial_arrays, solve_core_batched
+    from lexls_tpu_torch import solve_core_fused
+    from lexls_tpu_torch.ops import panel_factorize
+
+    prob, params, base, drifts, lb, ub = _bench_problem(torch.float64, dev)
+    params = dataclasses.replace(params, log_working_set_enabled=True,
+                                 cycling_handling_enabled=True)
+    struct = Structure.of(prob)
+    A = (base + drifts[0]).contiguous()
+    args = (A, lb.expand(B, -1).contiguous(), ub.expand(B, -1).contiguous(),
+            *batched_initial_arrays(prob, B, dev), None)
+    kw = dict(struct=struct, params=params, x_guess_specified=False, v0_specified=False)
+    fused = solve_core_fused(*args, **kw)
+    panel_factorize.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = solve_core_batched(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, passes, p = panel_factorize.launches, int(exact.it.max()), len(struct.lexlse_dims)
+    ints = ("status", "it", "ctr_type", "stamp", "next_stamp", "n_act", "n_deact", "n_fact")
+    bad = [f for f in ints + _LOG_FIELDS if f != "log_value"
+           and not torch.equal(getattr(exact, f), getattr(fused, f))]
+    ndiff = int((exact.ctr_type != fused.ctr_type).any(1).sum())
+    errs = {f: float((getattr(exact, f) - getattr(fused, f)).abs().max())
+            for f in ("x", "v", "log_value")}
+    print(f"[B2 against solve_core_batched f64 cold, log+cycling] B={B}: exact tier {wall:.3f} s "
+          f"host wall, {passes} passes, B1 launches {launches} (expect {p} x ({passes} + 1) = "
+          f"{p * (passes + 1)}); status {torch.bincount(exact.status + 1).tolist()} (-1,0,1,2); "
+          f"log entries {int(exact.log_len.sum())}; working sets differing {ndiff}/{B}; fields "
+          f"differing: {bad or 'none'}; max |err| x {errs['x']:.3e}, v {errs['v']:.3e}, log value "
+          f"{errs['log_value']:.3e}")
+    if bad or max(errs.values()) > 1e-8 or launches != p * (passes + 1) \
+            or not bool((exact.status == 0).all()):
+        raise SystemExit("B2 and solve_core_batched disagree, or B1's launches are off")
+
+
+def check_cycling_fixture(dev):
+    """The frozen degenerate instance of ``tests/golden/cycling_fixtures.npz``
+    (n=4, dims (2, 3)), which re-adds the constraint it just removed,
+    through the kernel in float64: one relaxation and PROBLEM_SOLVED; with
+    ``cycling_max_counter=0`` PROBLEM_SOLVED_CYCLING_HANDLING."""
+    from pathlib import Path
+
+    from lexls_tpu_torch import InequalityHierarchy, ParametersLexLSI, Structure
+    from lexls_tpu_torch import initial_activation, solve_core_fused
+
+    fz = np.load(Path(__file__).resolve().parent / "tests" / "golden" / "cycling_fixtures.npz")
+    A, lb, ub, guess = (fz[f"relax_once_{k}"] for k in ("A", "lb", "ub", "guess"))
+    prob = InequalityHierarchy(A=A, lb=lb, ub=ub, dims=(2, 3), n_var=4)
+    t = lambda a: torch.as_tensor(np.asarray(a)[None], device=dev)  # noqa: E731
+    c0, s0, n0 = initial_activation(prob, guess)
+    for max_counter, want in ((50, (1, 0)), (0, (0, 1))):
+        params = ParametersLexLSI(max_number_of_factorizations=60, log_working_set_enabled=True,
+                                  cycling_handling_enabled=True, cycling_max_counter=max_counter)
+        st = solve_core_fused(t(A), t(lb), t(ub), t(c0), t(s0), t(n0), t(np.zeros(4)),
+                              t(np.zeros(5)), None, struct=Structure.of(prob), params=params,
+                              x_guess_specified=False, v0_specified=False)
+        got = (int(st.cyc_counter[0]), int(st.status[0]))
+        moved = float((st.lb - t(lb)).abs().sum() + (st.ub - t(ub)).abs().sum())
+        print(f"[B2 cycling fixture f64] cycling_max_counter={max_counter}: (counter, status) "
+              f"{got} (expect {want}); iterations {int(st.it[0])}; log entries "
+              f"{int(st.log_len[0])}, flagged {int(st.log_cycling.sum())}; bounds moved by "
+              f"{moved:.3e}")
+        if got != want or (max_counter and (moved == 0.0 or int(st.log_cycling.sum()) != 1)):
+            raise SystemExit("the cycling fixture did not end as the reference does")
+
+
+def _log_loops(res, rows):
+    """For each instance in ``rows``, the period of the loop its log ends
+    in: the smallest P whose last P entries (objective, row, type) repeat
+    the P before them three times over, 0 if none up to 64.  P = 2 with
+    one constraint removed and added back is the pair that cycling
+    handling detects."""
+    key = (res.log_obj * 4096 + res.log_ctr) * 8 + res.log_type
+    out = []
+    for b in rows:
+        seq = key[b, :int(res.log_len[b])].tolist()
+        period = 0
+        for P in range(1, 65):
+            if len(seq) >= 4 * P and all(seq[-P:] == seq[-(k + 1) * P:-k * P] for k in (1, 2, 3)):
+                period = P
+                break
+        pair = period == 2 and seq[-1] // 8 == seq[-2] // 8
+        out.append((period, pair))
+    return out
+
+
+def measure_test01_cycling(dev):
+    """The ``test_01`` shape in float32, warm step, B=384 (a measurement,
+    nothing fails on its counts): the kernel with cycling handling off and
+    on, each with the log off and on; how many solves spend their budget,
+    how many cycles are detected, how many end
+    PROBLEM_SOLVED_CYCLING_HANDLING, and whether the logs of those that
+    spend the budget end in a REMOVE/ADD pair of one constraint or in a
+    longer loop.  The log must not change what the kernel does."""
+    from collections import Counter
+
+    from lexls_tpu_torch.lexlsi import active_set_kwargs
+    from lexls_tpu_torch.ops import fused_active_set
+    from lexls_tpu_torch.types import ParametersLexLSI
+
+    prob, struct, noise = _simple_bounds_problem(2)
+    t = lambda a: torch.as_tensor(a, device=dev).to(torch.float32)  # noqa: E731
+    A0, A1 = t(prob.A + noise[0]), t(prob.A + noise[1])
+    lbs, ubs = t(np.tile(prob.lb, (B, 1))), t(np.tile(prob.ub, (B, 1)))
+    tols = dict(tol_linear_dependence=1e-7, tol_wrong_sign_lambda=1e-4,
+                tol_correct_sign_lambda=1e-6, tol_feasibility=1e-5)
+    base = ParametersLexLSI(max_number_of_factorizations=1000, **tols)
+    s = _phase1(A0, lbs, ubs, struct, base)
+    cold = fused_active_set(*_state_args(A0, s), **active_set_kwargs(struct, base, dev))
+    s1 = _phase1(A1, lbs, ubs, struct, base, cold.x, cold.ctr_type)
+    args = _state_args(A1, s1)
+    small = float((torch.minimum(lbs.abs(), ubs.abs()) < 0.25).float().mean())
+    print(f"[test_01 f32 warm] n={SB_N} dims={SB_DIMS} B={B}, budget 1000, cycling_relax_step "
+          f"1e-8, cycling_max_counter 50; share of rows with a bound below 0.25 in size (where "
+          f"float32 keeps a step of 1e-8): {small:.3f}")
+    results = {}
+    for cyc in (False, True):
+        for log in (False, True):
+            params = ParametersLexLSI(max_number_of_factorizations=1000,
+                                      cycling_handling_enabled=cyc, log_working_set_enabled=log,
+                                      **tols)
+            kw = active_set_kwargs(struct, params, dev)
+            r = results[cyc, log] = fused_active_set(*args, **kw)
+            ms = _cuda_ms(lambda: fused_active_set(*args, **kw), 2)
+            spent = r.status == -1
+            print(f"[test_01 f32 warm] cycling {'on ' if cyc else 'off'} log "
+                  f"{'on ' if log else 'off'}: budget spent {int(spent.sum())}/{B}, ended "
+                  f"PROBLEM_SOLVED {int((r.status == 0).sum())}, "
+                  f"PROBLEM_SOLVED_CYCLING_HANDLING {int((r.status == 1).sum())}; detections "
+                  f"{int(r.cyc_counter.sum())} in {int((r.cyc_counter > 0).sum())} instances; "
+                  f"iterations mean {float(r.it.float().mean()):.2f} max {int(r.it.max())}; "
+                  f"kernel {ms:.3f} ms")
+        a, b = results[cyc, False], results[cyc, True]
+        if not all(torch.equal(x, y) for x, y in zip(a[:19], b[:19])):
+            raise SystemExit("[test_01 f32 warm] the log changed what the kernel does")
+    for cyc in (False, True):
+        r = results[cyc, True]
+        rows = torch.nonzero(r.status == -1)[:, 0].tolist()
+        host = type(r)(*(x.cpu() for x in r))
+        loops = _log_loops(host, rows)
+        pairs = sum(1 for _, pair in loops if pair)
+        periods = Counter(P for P, pair in loops if not pair)
+        print(f"[test_01 f32 warm] cycling {'on' if cyc else 'off'}: of {len(rows)} solves that "
+              f"spent the budget, logs ending in a REMOVE/ADD pair of one constraint: {pairs}; "
+              f"in a longer loop, by period: {dict(sorted(periods.items()))} (0 = no loop up to "
+              f"period 64); log overflows {int(r.log_overflow.sum())}")
+    on = results[True, True]
+    ended = on.status == 1
+    if bool(ended.any()):
+        moved = ((on.lb != lbs) | (on.ub != ubs)).sum(1)
+        print(f"[test_01 f32 warm] cycling on: in the {int(ended.sum())} solves ended by the "
+              f"detector, bounds that a relaxation moved: mean "
+              f"{float(moved[ended].float().mean()):.2f} per instance; counter mean "
+              f"{float(on.cyc_counter[ended].float().mean()):.1f}")
 
 
 def _plain_sequence(A_seq, lb_seq, ub_seq, struct, params):
@@ -727,6 +1004,111 @@ def run_main_paths(dev, report):
     profile_trip(A_seq, lb_seq, ub_seq, reg, struct, params)
 
 
+def run_new_paths(dev, report):
+    """Two further paths at the bench shape, float32, B=384, T=3, each
+    driven through its entry point with the launch counts zeroed just
+    before and read just after: the fused path with the working-set log
+    and cycling handling on (against the same with them off), and the
+    exact tier's sequence, which launches B1 in every iteration."""
+    import dataclasses
+
+    from lexls_tpu_torch import (Structure, solve_core_batched, solve_sequence_batched_fused,
+                                 solve_sequence_batched_native)
+    from lexls_tpu_torch.ops import fused_active_set, panel_factorize
+    from lexls_tpu_torch.sequence import _device_initial_activation
+
+    T = 3
+    prob, params, base, drifts, lb, ub = _bench_problem(torch.float32, dev)
+    struct = Structure.of(prob)
+    m = prob.n_ctr
+    A_seq = (base[:, None] + drifts[None])[:, :T].contiguous()
+    lb_seq, ub_seq = lb.expand(B, T, m).contiguous(), ub.expand(B, T, m).contiguous()
+    reg = torch.as_tensor(prob.regularization, device=dev)
+    both = dataclasses.replace(params, log_working_set_enabled=True,
+                               cycling_handling_enabled=True)
+
+    def drive(label, fn, key):
+        panel_factorize.launches = fused_active_set.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"panel_factorize": panel_factorize.launches,
+                    "fused_active_set": fused_active_set.launches}
+        x, v, status, it = out[:4]
+        print(f"[{label}] B={B} T={T} float32: {wall:.3f} s host wall (first run); launches "
+              f"{launches}; status counts {torch.bincount(status.flatten() + 1).tolist()} "
+              f"(-1,0,1,2); iterations per step, mean "
+              f"{[round(float(c), 2) for c in it.double().mean(0)]}, max {it.amax(0).tolist()}")
+        if x.shape != (B, T, N_VAR) or not bool(torch.isfinite(x).all()) \
+                or not bool(torch.isfinite(v).all()) or not bool((status == 0).all()):
+            raise SystemExit(f"{label}: not every solve is PROBLEM_SOLVED, finite and in shape")
+        for k in report:
+            report[k]["launches_by_path"][key] = launches[k]
+        return out, launches
+
+    fused = lambda T_, p=params: solve_sequence_batched_fused(  # noqa: E731
+        A_seq[:, :T_], lb_seq[:, :T_], ub_seq[:, :T_], reg, struct=struct, params=p)
+    native = lambda T_: solve_sequence_batched_native(  # noqa: E731
+        A_seq[:, :T_], lb_seq[:, :T_], ub_seq[:, :T_], reg, struct=struct, params=params)
+
+    off = fused(T)
+    on, launches = drive("fused path, log and cycling on", lambda T_: fused(T_, both),
+                         "fused_log_cycling")
+    same = all(torch.equal(a, b) for a, b in zip(on, off))
+    print(f"[fused path, log and cycling on] results identical to the path with them off: {same}")
+    if launches["fused_active_set"] != T or not same:
+        # no cycle is detected on this workload, so the options only record
+        raise SystemExit("fused path with log and cycling on: wrong launches or results")
+
+    (x, v, status, it, _, ct), launches = drive("exact tier", native, "native")
+    p = len(struct.lexlse_dims)
+    passes = int(it.amax(0).sum())
+    nf, nn = _level_norms(off[1], prob.dims), _level_norms(v, prob.dims)
+    rel = float(((nn - nf).abs() / (1.0 + nf)).amax())
+    print(f"[exact tier] passes of the loop {passes}; B1 launches {launches['panel_factorize']} "
+          f"(expect {p} x ({passes} + 1) = {p * (passes + 1)}); per-level |v| against the fused "
+          f"path: max |diff| / (1 + |v|) {rel:.3e}; final working sets differing "
+          f"{int((ct != off[5]).any(2).sum())}/{B * T}")
+    if launches["panel_factorize"] != p * (passes + 1) or launches["fused_active_set"] != 0 \
+            or rel > 1e-3:
+        raise SystemExit("exact tier: B1's launches are off or it disagrees with the fused path")
+    # the cold step varies between runs by more than a warm step takes, so
+    # a slope over T resolves nothing here: each warm step is timed alone,
+    # as the sequence runs it, from the step before it
+    cold = _sequence_times(native, (1,), 3)[1]
+    z = torch.zeros(B, m, dtype=A_seq.dtype, device=dev)
+
+    def warm_step(t):
+        A = A_seq[:, t].contiguous()
+        c, s, ns = _device_initial_activation(A, lb_seq[:, t], ub_seq[:, t], ct[:, t - 1], struct)
+        return solve_core_batched(A, lb_seq[:, t], ub_seq[:, t], c, s, ns, x[:, t - 1], z, reg,
+                                  struct=struct, params=params, x_guess_specified=True,
+                                  v0_specified=False)
+
+    warm = [_cuda_ms(lambda t=t: warm_step(t), 5) for t in range(1, T)]
+    per_pass = [w / int(it[:, t].max()) for t, w in zip(range(1, T), warm)]
+    print(f"[exact tier] cold step {statistics.median(cold):.3f} ms (T=1, median of 3; all "
+          f"{[round(c, 1) for c in cold]}); warm steps alone {[round(w, 3) for w in warm]} ms "
+          f"(median of 5 each; {[round(q, 3) for q in per_pass]} ms a pass); warm solves/s "
+          f"{B / (statistics.mean(warm) / 1e3):.1f}")
+    rows, wall_ms = _profile(lambda: native(T))
+    total = sum(r[0] for r in rows) / 1e3
+    if total == 0:
+        print("[profile exact tier] the profiler shows no device time: shares not measured")
+        return
+    b1 = [(r[0], r[1]) for r in rows if "panel_factorize_kernel" in r[2]]  # csrc/panel_lqr.cu
+    b1_ms, b1_n = sum(u for u, _ in b1) / 1e3, sum(c for _, c in b1)
+    print(f"[profile exact tier] T={T} sequence, profiled host wall {wall_ms:.3f} ms; device "
+          f"time {total:.3f} ms ({100 * total / wall_ms:.1f}% of the profiled wall) in "
+          f"{sum(r[1] for r in rows)} kernel launches; B1 {b1_ms:.3f} ms in {b1_n} launches "
+          f"({100 * b1_ms / total:.1f}% of device time, {b1_ms / max(b1_n, 1):.4f} ms a launch)")
+    for us, count, key in rows[:6]:
+        print(f"  {us / 1e3:10.3f} ms  {count:6d} calls  {key[:90]}")
+    report["panel_factorize"]["path2_ms_per_launch"] = b1_ms / max(b1_n, 1)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU",
@@ -767,7 +1149,11 @@ def main():
     check_fused(dev, report)
     check_simple_bounds(dev)
     check_tracked_simple_bounds(dev)
+    check_exact_tier(dev)
+    check_cycling_fixture(dev)
+    measure_test01_cycling(dev)
     run_main_paths(dev, report)
+    run_new_paths(dev, report)
 
     print(json.dumps({"kernels": list(report.values())}))
     print(smi)

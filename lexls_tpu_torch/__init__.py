@@ -2,8 +2,10 @@
 
 The batched, warm-started sequence solve through the whole-solve tier,
 with the level-panel factorization (kernel B1) and the whole active-set
-loop (kernel B2) as hand-written CUDA kernels, and over them the
-carried-factorization tracker (``tracked=True``).  It
+loop (kernel B2) as hand-written CUDA kernels, over them the
+carried-factorization tracker (``tracked=True``), and beside them the
+natively batched exact tier, which factorizes through B1 in every
+iteration.  It
 imports torch and NumPy only; ``lexls_tpu`` (JAX) is the reference that
 the tests hold it against.
 """
@@ -21,8 +23,15 @@ from .types import (
     TerminationStatus,
     build_general_hierarchy,
 )
-from .lexlsi import LexLSIState, Structure, solve_core_fused
-from .sequence import solve_sequence_batched_fused
+from .lexlsi import (
+    LexLSIState,
+    Structure,
+    initial_activation,
+    solve_core_batched,
+    solve_core_fused,
+)
+from .parallel import batched_initial_arrays
+from .sequence import solve_sequence_batched_fused, solve_sequence_batched_native
 from .tracker import Carried, bootstrap_carried, solve_core_cold_tracked, solve_core_tracked
 
 __all__ = [
@@ -37,10 +46,14 @@ __all__ = [
     "RegularizationType",
     "Structure",
     "TerminationStatus",
+    "batched_initial_arrays",
     "bootstrap_carried",
     "build_general_hierarchy",
+    "initial_activation",
+    "solve_core_batched",
     "solve_core_cold_tracked",
     "solve_core_fused",
     "solve_core_tracked",
     "solve_sequence_batched_fused",
+    "solve_sequence_batched_native",
 ]

@@ -4,8 +4,8 @@
 // (pl.pallas_call at fused.py:966; body _fused_kernel, fused.py:182-769):
 // general levels with an optional simple-bounds level (d0 > 0), the
 // iter_cap/it0 pause and resume, and the export of the last factorization
-// (per-level R in pivot order, positions, ranks).  The working-set log and
-// cycling handling are not ported.
+// (per-level R in pivot order, positions, ranks), the working-set log and
+// cycling handling.
 //
 // Design on the H100: one thread block (128 threads) per instance loops
 // over active-set iterations until its own instance terminates; the TPU
@@ -29,6 +29,15 @@
 // columns zeroed and their values folded into the rhs by plain indexing
 // through var_idx, and the multipliers of the fixed variables land on the
 // bound rows of the (p, m) multiplier table that the selection scans.
+// Working-set log and cycling handling (run-time options, so that one
+// compiled kernel serves every caller): what an iteration changed (row,
+// type, step length or multiplier, total rank) is known identically to
+// every thread, so thread 0 appends the entry by plain indexing at log_len
+// and relaxes the one bound of a detected cycle in place; the TPU tile
+// wrote both through one-hot masks over the whole ring and the whole row.
+// The log length and the detector's four integers are instance scalars
+// like the counters; lb/ub are per-instance state under cycling (the
+// wrapper hands the kernel its own copy), re-read by every iteration.
 //
 // Stages per iteration (fused.py line numbers): formLexLSE masking
 // (278-327, fixed variables 291-319), per-level panel loop (335-411), Gauss elimination of the
@@ -37,7 +46,8 @@
 // Householder replay j = K-1..0 (532-583), removal selection with both
 // strategies and CORRECT_SIGN marking (585-648, multipliers of fixed
 // variables 598-609), working-set update and counters (650-677), pause at
-// iter_cap (262-268), factor export (457-475).
+// iter_cap (262-268), factor export (457-475), working-set log (679-704),
+// cycling handling (706-746).
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -48,13 +58,14 @@ namespace lexls {
 
 constexpr int kFusedThreads = 128;
 constexpr int kInactive = 0, kActiveLb = 1, kActiveUb = 2, kActiveEq = 3, kCorrectSign = 4;
-constexpr int kUnknown = -1, kSolved = 0;
+constexpr int kUnknown = -1, kSolved = 0, kSolvedCycling = 1;
+constexpr int kOpUndefined = 0, kOpAdd = 1, kOpRemove = 2;
 
 template <typename T>
 struct FusedArgs {
   const T* A;
-  const T* lb;
-  const T* ub;
+  T* lb;  // written only by cycling handling
+  T* ub;
   int* ct;
   int* st;
   int* ns;
@@ -79,10 +90,27 @@ struct FusedArgs {
   const int* vidx;  // (d0) variable of each bound row
   T* work;
   int* iwork;
+  // working-set log, (log_cap) per instance: objective, row within it,
+  // type, value, total rank, cycling flag; then its length and overflow flag
+  int* lobj;
+  int* lctr;
+  int* ltyp;
+  T* lval;
+  int* lrank;
+  int* lcyc;
+  int* llen;
+  int* lovf;
+  // cycling detector: counter, previous operation, row and type
+  int* ccnt;
+  int* cop;
+  int* crow;
+  int* ctypv;
   int m, n, p, d0, kmax, dmax;
   size_t wstride, iwstride;
   T tol_ld, tol_feas, tol_wrong, tol_correct;
   int max_fact, deact_first, iter_cap;
+  int log_cap, cycling, cyc_max;
+  T cyc_relax;
 };
 
 __device__ __forceinline__ bool is_active(int t) {
@@ -103,8 +131,8 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
   const T inf = T(INFINITY);
 
   const T* A = a.A + (size_t)b * m * n;
-  const T* lb = a.lb + (size_t)b * m;
-  const T* ub = a.ub + (size_t)b * m;
+  T* lb = a.lb + (size_t)b * m;
+  T* ub = a.ub + (size_t)b * m;
   int* ct = a.ct + (size_t)b * m;
   int* st = a.st + (size_t)b * m;
   T* x = a.x + (size_t)b * n;
@@ -138,6 +166,17 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
   // instance scalars, held identically by every thread
   const int it0 = a.it0[b];
   int ns = a.ns[b], nf = a.nf[b], it = it0, na = 0, nd = 0, status = kUnknown;
+  int llen = 0, lovf = 0, ccnt = 0, cop = kOpUndefined, crow = -1, ctypv = -1;
+  if (a.log_cap > 0) {
+    llen = a.llen[b];
+    lovf = a.lovf[b];
+  }
+  if (a.cycling) {
+    ccnt = a.ccnt[b];
+    cop = a.cop[b];
+    crow = a.crow[b];
+    ctypv = a.ctypv[b];
+  }
   for (int c = tid; c < n; c += nt) dx[c] = T(0);
   for (int i = tid; i < m; i += nt) dv[i] = Adx[i] = T(0);
 
@@ -258,6 +297,8 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
       __syncthreads();
     }
 
+    const int total_rank = ci;  // positions consumed = sum of the level ranks
+
     // ---- basic solve: backward substitution per level, free vars = 0
     for (int c = tid; c < n; c += nt) xvar[c] = T(0);
     __syncthreads();
@@ -337,6 +378,7 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
     // ---- λ sweep and removal selection, when nothing blocks
     bool found = false;
     int sel_row = -1;
+    T sel_val = T(0);  // the selected multiplier, for the log (0 under deact_first)
     if (!blocking) {
       for (int idx = tid; idx < p * n; idx += nt) rhs_all[idx] = T(0);
       __syncthreads();
@@ -420,6 +462,7 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
           }
         }
         int row_j;
+        T am = T(0);  // the minimum wrong-sign multiplier (largest-multiplier strategy)
         if (a.deact_first) {
           const int kmin = block_min(kloc);
           int rloc2 = INT_MAX;
@@ -427,7 +470,7 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
             if (wrong[i] && st[i] == kmin && i < rloc2) rloc2 = i;
           row_j = block_min(rloc2);
         } else {
-          const T am = block_min(aloc);
+          am = block_min(aloc);
           long long key = LLONG_MAX;
           for (int i = tid; i < m; i += nt) {
             const T val = lam[j * m + i];
@@ -443,11 +486,14 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
         if (row_j != INT_MAX) {
           found = true;
           sel_row = row_j;
+          sel_val = am;
         }
       }
     }
     const bool do_remove = !blocking && found;
     const bool solved = !blocking && !found;
+    // the type the removed row had, read before the update overwrites it
+    const int rm_type = do_remove ? ct[sel_row] : -1;
 
     // ---- working-set update, step, counters
     __syncthreads();
@@ -472,6 +518,58 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
     it += 1;
     na += blocking;
     nd += do_remove;
+
+    // ---- working-set log: one entry per change; a full log drops it
+    if (a.log_cap > 0 && (blocking || do_remove)) {
+      if (llen < a.log_cap) {
+        if (tid == 0) {
+          const int row = blocking ? brow : sel_row;
+          int obj = 0, rin = row;  // a bound row: objective 0
+          if (row >= d0) {
+            int k = 0;
+            while (k < p - 1 && row - d0 >= offs[k] + dims[k]) ++k;
+            obj = k + (d0 > 0);
+            rin = row - d0 - offs[k];
+          }
+          const size_t e = (size_t)b * a.log_cap + llen;
+          a.lobj[e] = obj;
+          a.lctr[e] = rin;
+          a.ltyp[e] = blocking ? btype : kInactive;
+          a.lval[e] = blocking ? alpha : sel_val;
+          a.lrank[e] = total_rank;
+        }
+        llen += 1;
+      } else {
+        lovf = 1;
+      }
+    }
+
+    // ---- cycling handling: an ADD of the (row, type) that the previous
+    // operation removed relaxes that bound, or past cyc_max detections ends
+    // the solve
+    if (a.cycling && (blocking || do_remove)) {
+      const int op = blocking ? kOpAdd : kOpRemove;
+      const int row = blocking ? brow : sel_row;
+      const int typ = blocking ? btype : rm_type;
+      if (op == kOpAdd && cop == kOpRemove && row == crow && typ == ctypv) {
+        if (ccnt >= a.cyc_max) {
+          status = kSolvedCycling;
+        } else {
+          if (tid == 0) {
+            if (ctypv == kActiveLb) lb[crow] -= a.cyc_relax;
+            else if (ctypv == kActiveUb) ub[crow] += a.cyc_relax;
+            if (a.log_cap > 0) {
+              const int last = llen - 1 < 0 ? 0 : llen - 1;
+              a.lcyc[(size_t)b * a.log_cap + last] = 1;
+            }
+          }
+          ccnt += 1;
+        }
+      }
+      cop = op;
+      crow = row;
+      ctypv = typ;
+    }
     __syncthreads();
   }
 
@@ -501,6 +599,16 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
     a.na[b] = na;
     a.nd[b] = nd;
     a.status[b] = status;
+    if (a.log_cap > 0) {
+      a.llen[b] = llen;
+      a.lovf[b] = lovf;
+    }
+    if (a.cycling) {
+      a.ccnt[b] = ccnt;
+      a.cop[b] = cop;
+      a.crow[b] = crow;
+      a.ctypv[b] = ctypv;
+    }
   }
 }
 
@@ -511,12 +619,15 @@ int launch_fused(FusedArgs<T> a, int B, cudaStream_t stream) {
 }
 
 template <typename T>
-int fused_entry(const T* A, const T* lb, const T* ub, int* ct, int* st, int* ns, T* x, T* v,
+int fused_entry(const T* A, T* lb, T* ub, int* ct, int* st, int* ns, T* x, T* v,
                 T* Ax, int* nf, const int* it0, T* dx, T* dv, T* Adx, int* it, int* na, int* nd,
                 int* status, T* rpad, int* posf, int* ranks, const int* lvl, const int* prio,
-                const int* elig, const int* vidx, T* work, int* iwork, int B, int m, int n,
+                const int* elig, const int* vidx, T* work, int* iwork, int* lobj, int* lctr,
+                int* ltyp, T* lval, int* lrank, int* lcyc, int* llen, int* lovf, int* ccnt,
+                int* cop, int* crow, int* ctypv, int B, int m, int n,
                 int p, int d0, int kmax, int dmax, T tol_ld, T tol_feas, T tol_wrong,
-                T tol_correct, int max_fact, int deact_first, int iter_cap, void* stream) {
+                T tol_correct, int max_fact, int deact_first, int iter_cap, int log_cap,
+                int cycling, int cyc_max, T cyc_relax, void* stream) {
   FusedArgs<T> a;
   a.A = A;
   a.lb = lb;
@@ -545,6 +656,18 @@ int fused_entry(const T* A, const T* lb, const T* ub, int* ct, int* st, int* ns,
   a.vidx = vidx;
   a.work = work;
   a.iwork = iwork;
+  a.lobj = lobj;
+  a.lctr = lctr;
+  a.ltyp = ltyp;
+  a.lval = lval;
+  a.lrank = lrank;
+  a.lcyc = lcyc;
+  a.llen = llen;
+  a.lovf = lovf;
+  a.ccnt = ccnt;
+  a.cop = cop;
+  a.crow = crow;
+  a.ctypv = ctypv;
   a.m = m;
   a.n = n;
   a.p = p;
@@ -561,23 +684,30 @@ int fused_entry(const T* A, const T* lb, const T* ub, int* ct, int* st, int* ns,
   a.max_fact = max_fact;
   a.deact_first = deact_first;
   a.iter_cap = iter_cap;
+  a.log_cap = log_cap;
+  a.cycling = cycling;
+  a.cyc_max = cyc_max;
+  a.cyc_relax = cyc_relax;
   return launch_fused<T>(a, B, (cudaStream_t)stream);
 }
 
 }  // namespace lexls
 
 #define LEXLS_FUSED_ENTRY(NAME, T)                                                              \
-  int NAME(const T* A, const T* lb, const T* ub, int* ct, int* st, int* ns, T* x, T* v, T* Ax,  \
-           int* nf, const int* it0, T* dx, T* dv, T* Adx, int* it, int* na, int* nd,            \
-           int* status, T* rpad, int* posf, int* ranks, const int* lvl, const int* prio,        \
-           const int* elig, const int* vidx, T* work, int* iwork, int B, int m, int n, int p,   \
-           int d0, int kmax, int dmax, T tol_ld, T tol_feas, T tol_wrong, T tol_correct,        \
-           int max_fact, int deact_first, int iter_cap, void* stream) {                         \
+  int NAME(const T* A, T* lb, T* ub, int* ct, int* st, int* ns, T* x, T* v, T* Ax, int* nf,     \
+           const int* it0, T* dx, T* dv, T* Adx, int* it, int* na, int* nd, int* status,        \
+           T* rpad, int* posf, int* ranks, const int* lvl, const int* prio, const int* elig,    \
+           const int* vidx, T* work, int* iwork, int* lobj, int* lctr, int* ltyp, T* lval,      \
+           int* lrank, int* lcyc, int* llen, int* lovf, int* ccnt, int* cop, int* crow,         \
+           int* ctypv, int B, int m, int n, int p, int d0, int kmax, int dmax, T tol_ld,        \
+           T tol_feas, T tol_wrong, T tol_correct, int max_fact, int deact_first, int iter_cap, \
+           int log_cap, int cycling, int cyc_max, T cyc_relax, void* stream) {                  \
     return lexls::fused_entry<T>(A, lb, ub, ct, st, ns, x, v, Ax, nf, it0, dx, dv, Adx, it, na, \
                                  nd, status, rpad, posf, ranks, lvl, prio, elig, vidx, work,    \
-                                 iwork, B, m, n, p, d0, kmax, dmax, tol_ld, tol_feas,           \
-                                 tol_wrong, tol_correct, max_fact, deact_first, iter_cap,       \
-                                 stream);                                                       \
+                                 iwork, lobj, lctr, ltyp, lval, lrank, lcyc, llen, lovf, ccnt,  \
+                                 cop, crow, ctypv, B, m, n, p, d0, kmax, dmax, tol_ld,          \
+                                 tol_feas, tol_wrong, tol_correct, max_fact, deact_first,       \
+                                 iter_cap, log_cap, cycling, cyc_max, cyc_relax, stream);       \
   }
 
 extern "C" {

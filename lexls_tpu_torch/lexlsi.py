@@ -1,11 +1,16 @@
-"""The primal active-set solver's whole-solve tier, batched (LexLSI).
+"""The primal active-set solver, batched (LexLSI): its two tiers.
 
-Counterpart of the parts of ``lexls_tpu/lexlsi.py`` that the fused
-sequence runs: the static ``Structure``, the solver state, phase 1
-(``_initial_state``, ``lexlsi.py:472-551``), the pieces the tracker
-shares with it (``_masked_general``, ``_form_step``) and the whole-solve
-tier (``solve_core_fused``/``_fused_tail``, ``lexlsi.py:844-1050``), whose
-active-set loop is kernel B2 (:mod:`lexls_tpu_torch.ops.fused`).
+Counterpart of the parts of ``lexls_tpu/lexlsi.py`` that the ported
+paths run: the static ``Structure``, the solver state, phase 1
+(``_initial_state``, ``lexlsi.py:472-551``), the pieces of one active-set
+iteration that the tiers, the tracker and the plain version of kernel B2
+share (``_masked_general``, ``_form_step``, ``_check_blocking``,
+``_select_removal``, the working-set log and cycling handling), the
+whole-solve tier (``solve_core_fused``/``_fused_tail``,
+``lexlsi.py:844-1050``), whose active-set loop is kernel B2
+(:mod:`lexls_tpu_torch.ops.fused`), and the natively batched exact tier
+(``solve_core_batched``, ``lexlsi.py:570-834``), which factorizes every
+iteration through kernel B1 (:mod:`lexls_tpu_torch.ops.panel_lqr`).
 
 Every tensor carries a leading batch axis B in place of the JAX
 package's ``vmap``.  The working set is data: a per-constraint int32
@@ -24,10 +29,13 @@ import torch
 from .types import (
     CtrType,
     LexLSError,
+    OperationType,
     ParametersLexLSI,
     RegularizationType,
     TerminationStatus,
 )
+
+_INT_MAX = torch.iinfo(torch.int32).max
 
 
 def full_fp32() -> None:
@@ -129,7 +137,11 @@ class Structure:
 
 @dataclasses.dataclass(frozen=True)
 class LexLSIState:
-    """Batched solver state: float (B, n) or (B, m), int32 (B, m) or (B,)."""
+    """Batched solver state: float (B, n) or (B, m), int32 (B, m) or (B,).
+    The working-set log holds ``cap = max_number_of_factorizations + 2``
+    entries per instance when ``log_working_set_enabled`` and none
+    otherwise; ``lb``/``ub`` are the bounds as cycling handling relaxed
+    them."""
 
     x: torch.Tensor
     v: torch.Tensor
@@ -147,6 +159,18 @@ class LexLSIState:
     n_deact: torch.Tensor
     n_fact: torch.Tensor
     status: torch.Tensor
+    cyc_counter: torch.Tensor
+    cyc_prev_op: torch.Tensor
+    cyc_prev_row: torch.Tensor
+    cyc_prev_type: torch.Tensor
+    log_obj: torch.Tensor       # (B, cap) int32
+    log_ctr: torch.Tensor
+    log_type: torch.Tensor
+    log_value: torch.Tensor     # (B, cap) float
+    log_rank: torch.Tensor
+    log_cycling: torch.Tensor   # (B, cap) bool
+    log_len: torch.Tensor
+    log_overflow: torch.Tensor  # (B,) bool: an entry was dropped (log full)
 
 
 # ---------------------------------------------------------------------------
@@ -291,47 +315,53 @@ def _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
     # dx of iteration 0 is recomputed by the loop body itself
     dx = torch.zeros(B, n, dtype=A.dtype, device=dev)
     Adx, dv = _form_step(A, lb, ub, ctr_type, Ax, v, dx)
-    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    zero = torch.zeros(B, **i32)
+    cap = params.max_number_of_factorizations + 2 if params.log_working_set_enabled else 0
+    log_int = torch.zeros(B, cap, **i32)
     return LexLSIState(
         x=x, v=v, dx=dx, dv=dv, Ax=Ax, Adx=Adx,
         ctr_type=ctr_type, stamp=stamp, next_stamp=next_stamp, lb=lb, ub=ub,
         it=zero, n_act=zero, n_deact=zero, n_fact=zero + 1,
-        status=torch.full((B,), int(TerminationStatus.UNKNOWN), dtype=torch.int32, device=dev),
+        status=torch.full((B,), int(TerminationStatus.UNKNOWN), **i32),
+        **dict(zip(("cyc_counter", "cyc_prev_op", "cyc_prev_row", "cyc_prev_type"),
+                   _initial_cycling(B, dev))),
+        log_obj=log_int, log_ctr=log_int, log_type=log_int,
+        log_value=torch.zeros(B, cap, dtype=A.dtype, device=dev), log_rank=log_int,
+        log_cycling=torch.zeros(B, cap, dtype=torch.bool, device=dev), log_len=zero,
+        log_overflow=torch.zeros(B, dtype=torch.bool, device=dev),
     )
 
 
 # ---------------------------------------------------------------------------
-# The whole-solve tier
+# Pieces of one active-set iteration, shared by the exact tier below, the
+# plain version of kernel B2 and the tracker
 # ---------------------------------------------------------------------------
 
 
-def _check_fused_supported(params: ParametersLexLSI) -> None:
-    if params.regularization_type != RegularizationType.NONE:
-        raise LexLSError("solve_core_fused: regularization is not ported")
-    if params.trace_enabled or params.use_phase1_v0:
-        raise LexLSError("solve_core_fused: trace/use_phase1_v0 are not ported")
-    if params.log_working_set_enabled or params.cycling_handling_enabled:
-        raise LexLSError("solve_core_fused: working-set log and cycling handling are not ported")
-
-
-def solve_core_fused(
-    A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, reg,
-    struct: Structure, params: ParametersLexLSI,
-    x_guess_specified: bool, v0_specified: bool, return_factors: bool = False,
-):
-    """Whole-solve tier (``lexlsi.py:844-891``): phase 1 in torch, then
-    the entire active-set loop in kernel B2.  All arrays carry a leading
-    batch axis except ``reg`` (per-level regularization factors, unused
-    since regularization is not ported).  With ``return_factors`` returns
-    ``(state, (rpad, posf, ranks))``, the final factorization that
-    :func:`lexls_tpu_torch.tracker.bootstrap_carried` takes.  Raises
-    ``LexLSError`` for options the port does not support."""
-    _check_fused_supported(params)
-    full_fp32()
-    A, lb, ub = A.contiguous(), lb.contiguous(), ub.contiguous()
-    s = _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
-                       struct, params, x_guess_specified, v0_specified)
-    return _fused_tail(A, s, struct=struct, params=params, return_factors=return_factors)
+def _check_blocking(ct, Ax, Adx, v, dv, lb, ub, tol_feas):
+    """Ratio test over inactive rows (``lexlsi.py:292-317``,
+    ``objective.h:521-578``), first-minimum tie-break.  Returns (alpha,
+    row (-1 if none), type, blocking)."""
+    B, m = ct.shape
+    iota_m = torch.arange(m, device=ct.device)
+    inactive = ct == int(CtrType.INACTIVE)
+    den = Adx - dv
+    neg = den < -tol_feas
+    pos = den > tol_feas
+    eligible = inactive & (neg | pos)
+    rhs = torch.where(neg, lb, ub)
+    typ = torch.where(neg, int(CtrType.ACTIVE_LB), int(CtrType.ACTIVE_UB))
+    num = rhs - Ax + v
+    ratio = (num / torch.where(eligible, den, 1.0)).clamp_min(0.0)
+    masked = torch.where(eligible, ratio, torch.inf)
+    amin = masked.amin(1)
+    first = eligible & (masked == amin[:, None])
+    row = torch.where(first, iota_m, _INT_MAX).amin(1)
+    blocking = (amin < 1.0) & (row < m)
+    alpha = torch.where(blocking, amin, 1.0)
+    btype = torch.where(blocking, typ.gather(1, row.clamp(max=m - 1)[:, None])[:, 0], 0)
+    return alpha, torch.where(blocking, row, -1), btype, blocking
 
 
 @functools.lru_cache(maxsize=64)
@@ -345,10 +375,187 @@ def _sweep_tables(struct: Structure, device: torch.device):
     return torch.as_tensor(prio, device=device), torch.as_tensor(elig, device=device)
 
 
+def _select_removal(lam_all, ct, st, Agm, fixed_mask, struct: Structure,
+                    params: ParametersLexLSI):
+    """Batched removal selection (``findActiveCtr2Remove``,
+    ``lexlsi.h:1048-1139``) from every objective's multipliers over the
+    general rows, ``lam_all`` (B, p, m - d0), vectorized over objectives
+    (``tracker.py:888-958``).
+
+    The sweep's only coupling across objectives is the CORRECT_SIGN
+    marking: a row marked at objective i is not considered at objectives
+    after i.  Before the first wrong-sign hit the marks do not depend on
+    earlier marks, so the serially updated sense is an exclusive OR-scan
+    of the per-objective mark sets.  Returns (found (B,), row (B,), -1
+    where none, value (B,)): the value is the selected sign-adjusted
+    multiplier under the largest-multiplier strategy and 0 under
+    ``deactivate_first_wrong_sign`` or where nothing is found
+    (``lexlsi.py:378-391``)."""
+    d0, m = struct.d0, struct.m
+    dev = lam_all.device
+    iota_m = torch.arange(m, device=dev)
+    prio_all, elig_all = _sweep_tables(struct, dev)               # (p, m) int32
+    if d0:
+        lam_fixed = -torch.einsum("bmn,bpm->bpn", Agm, lam_all)
+        lam_fixed = torch.where(fixed_mask[:, None, :], lam_fixed, 0.0)
+        vals = torch.cat([lam_fixed[:, :, list(struct.var_idx)], lam_all], 2)   # (B, p, m)
+    else:
+        vals = lam_all
+    LB, UB = int(CtrType.ACTIVE_LB), int(CtrType.ACTIVE_UB)
+    elig = (elig_all != 0)[None]
+    active0 = ((ct == LB) | (ct == UB))[:, None, :]
+    a = torch.where((ct == LB)[:, None, :], -vals, vals)
+    mark = elig & active0 & (a > params.tol_correct_sign_lambda)
+    marki = mark.to(torch.int32)
+    marked_before = (torch.cumsum(marki, 1) - marki) > 0
+    wrong = elig & active0 & ~marked_before & (a < -params.tol_wrong_sign_lambda)
+    found_j = wrong.any(2)                                         # (B, p)
+    found = found_j.any(1)
+    first_j = found_j.to(torch.int32).argmax(1)                    # first objective that hits
+    hot_j = (torch.arange(found_j.shape[1], device=dev) == first_j[:, None])[:, :, None]
+    wrong_s = (wrong & hot_j).any(1)                               # (B, m)
+    val = torch.zeros_like(lam_all[:, 0, 0])
+    if params.deactivate_first_wrong_sign:
+        kmin = torch.where(wrong_s, st, _INT_MAX).amin(1, keepdim=True)
+        first = wrong_s & (st == kmin)
+    else:
+        a_s = torch.where(wrong & hot_j, a, 0.0).sum(1)
+        amin = torch.where(wrong_s, a_s, torch.inf).amin(1, keepdim=True)
+        tie = wrong_s & (a_s == amin)
+        prio_s = prio_all[first_j.long()]                          # (B, m)
+        pmin = torch.where(tie, prio_s, _INT_MAX).amin(1, keepdim=True)
+        first = tie & (prio_s == pmin)
+        val = torch.where(found, amin[:, 0], val)
+    row = torch.where(first, iota_m, _INT_MAX).amin(1)
+    return found, torch.where(found, row, -1).to(torch.int32), val
+
+
+@functools.lru_cache(maxsize=64)
+def _log_row_table(dims: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """(2, m) int32 on ``device``: for each constraint row the objective it
+    belongs to and its row within that objective, as working-set log
+    entries name a constraint.  ``dims`` are all levels, a simple-bounds
+    level included as objective 0."""
+    obj = np.concatenate([np.full(d, k) for k, d in enumerate(dims)] or [np.zeros(0)])
+    row = np.concatenate([np.arange(d) for d in dims] or [np.zeros(0)])
+    return torch.as_tensor(np.stack([obj, row]).astype(np.int32), device=device)
+
+
+def _empty_log(B: int, cap: int, dtype, device):
+    """An empty working-set log of ``cap`` entries per instance, in the
+    form kernel B2 takes it: (obj, ctr, type, value, rank, cycling) of
+    (B, cap) and (len, overflow) of (B,), flags as int32."""
+    zi = torch.zeros(B, cap, dtype=torch.int32, device=device)
+    z = torch.zeros(B, dtype=torch.int32, device=device)
+    return (zi, zi, zi, torch.zeros(B, cap, dtype=dtype, device=device), zi, zi, z, z)
+
+
+def _initial_cycling(B: int, device):
+    """The cycling detector before any operation: (counter 0, previous
+    operation UNDEFINED, previous row -1, previous type -1), each (B,)."""
+    z = torch.zeros(B, dtype=torch.int32, device=device)
+    return (z, z + int(OperationType.UNDEFINED), z - 1, z - 1)
+
+
+def _log_append(log, alive, blocking, do_remove, brow, rrow, btype, alpha, rval, total_rank,
+                row_table):
+    """Append this iteration's working-set change to the log of every
+    alive instance that made one (``typedefs.h:380-432``,
+    ``lexlsi.h:1188-1222``): the constraint as (objective, row within it),
+    its new type (INACTIVE for a removal), the step length of an addition
+    or the selected multiplier of a removal, and the total rank of the
+    iteration's factorization.  A full log drops the entry and raises the
+    overflow flag.  ``log`` is (obj, ctr, type, value, rank, cycling, len,
+    overflow); the flags keep their dtype (bool or int32)."""
+    obj, ctr, typ, val, rank, cyc, length, ovf = log
+    cap = obj.shape[1]
+    want = (blocking | do_remove) & alive
+    can = length < cap
+    do_log = want & can
+    row = torch.where(blocking, brow, rrow).clamp(min=0).long()
+    at = do_log[:, None] & (torch.arange(cap, device=obj.device) == length[:, None])
+
+    def put(buf, entry):
+        return torch.where(at, entry[:, None].to(buf.dtype), buf)
+
+    return (put(obj, row_table[0][row]), put(ctr, row_table[1][row]),
+            put(typ, torch.where(blocking, btype, int(CtrType.INACTIVE))),
+            put(val, torch.where(blocking, alpha, rval)), put(rank, total_rank), cyc,
+            length + do_log.to(torch.int32), ovf | (want & ~can))
+
+
+def _cycling_step(cyc, lb, ub, status, log_cycling, log_len, alive, blocking, do_remove,
+                  brow, rrow, btype, rm_type, cyc_max: int, cyc_relax: float):
+    """Cycling handling of one iteration (``cycling.h:32-65``) for the
+    alive instances: an addition of the (row, type) that the previous
+    operation removed is a detection.  Past ``cyc_max`` detections the
+    status becomes PROBLEM_SOLVED_CYCLING_HANDLING; otherwise the bound
+    that was removed is relaxed by ``cyc_relax``, the counter rises and
+    the newest log entry is flagged.  ``rm_type`` is the type the removed
+    row had before its removal.  Returns (cyc, lb, ub, status,
+    log_cycling) with ``cyc`` = (counter, previous operation, row, type)."""
+    cnt, pop, prow, ptype = cyc
+    ADD, REMOVE, UNDEFINED = (int(OperationType.ADD), int(OperationType.REMOVE),
+                              int(OperationType.UNDEFINED))
+    op = torch.where(blocking, ADD, torch.where(do_remove, REMOVE, UNDEFINED))
+    row = torch.where(blocking, brow, torch.where(do_remove, rrow, -1))
+    typ = torch.where(blocking, btype, torch.where(do_remove, rm_type, -1))
+    detected = (op == ADD) & (pop == REMOVE) & (row == prow) & (typ == ptype) & alive
+    over = detected & (cnt >= cyc_max)
+    relax = detected & ~over
+    status = torch.where(over, int(TerminationStatus.PROBLEM_SOLVED_CYCLING_HANDLING), status)
+    at = relax[:, None] & (torch.arange(lb.shape[1], device=lb.device) == prow[:, None])
+    lb = torch.where(at & (ptype == int(CtrType.ACTIVE_LB))[:, None], lb - cyc_relax, lb)
+    ub = torch.where(at & (ptype == int(CtrType.ACTIVE_UB))[:, None], ub + cyc_relax, ub)
+    cap = log_cycling.shape[1]
+    if cap:
+        last = (log_len - 1).clamp(0, cap - 1)
+        log_cycling = log_cycling | (
+            relax[:, None] & (torch.arange(cap, device=lb.device) == last[:, None]))
+    upd = (op != UNDEFINED) & alive
+    i32 = torch.int32
+    cyc = ((cnt + relax.to(i32)).to(i32), torch.where(upd, op, pop).to(i32),
+           torch.where(upd, row, prow).to(i32), torch.where(upd, typ, ptype).to(i32))
+    return cyc, lb, ub, status.to(i32), log_cycling
+
+
+# ---------------------------------------------------------------------------
+# The whole-solve tier
+# ---------------------------------------------------------------------------
+
+
+def _check_supported(params: ParametersLexLSI, name: str) -> None:
+    if params.regularization_type != RegularizationType.NONE:
+        raise LexLSError(f"{name}: regularization is not ported")
+    if params.trace_enabled or params.use_phase1_v0:
+        raise LexLSError(f"{name}: trace/use_phase1_v0 are not ported")
+
+
+def solve_core_fused(
+    A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, reg,
+    struct: Structure, params: ParametersLexLSI,
+    x_guess_specified: bool, v0_specified: bool, return_factors: bool = False,
+):
+    """Whole-solve tier (``lexlsi.py:844-891``): phase 1 in torch, then
+    the entire active-set loop in kernel B2, the working-set log and
+    cycling handling included.  All arrays carry a leading batch axis
+    except ``reg`` (per-level regularization factors, unused since
+    regularization is not ported).  With ``return_factors`` returns
+    ``(state, (rpad, posf, ranks))``, the final factorization that
+    :func:`lexls_tpu_torch.tracker.bootstrap_carried` takes.  Raises
+    ``LexLSError`` for options the port does not support."""
+    _check_supported(params, "solve_core_fused")
+    full_fp32()
+    A, lb, ub = A.contiguous(), lb.contiguous(), ub.contiguous()
+    s = _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
+                       struct, params, x_guess_specified, v0_specified)
+    return _fused_tail(A, s, struct=struct, params=params, return_factors=return_factors)
+
+
 def active_set_kwargs(struct: Structure, params: ParametersLexLSI, device) -> dict:
     """Keyword arguments of kernel B2 (and of its plain version) for a
-    structure and parameters: level sizes, tolerances, and the λ-sweep
-    tables of :func:`_sweep_tables`."""
+    structure and parameters: level sizes, tolerances, the λ-sweep tables
+    of :func:`_sweep_tables`, and the log and cycling options."""
     prio, elig = _sweep_tables(struct, torch.device(device))
     return dict(
         dims=struct.lexlse_dims, d0=struct.d0,
@@ -356,7 +563,11 @@ def active_set_kwargs(struct: Structure, params: ParametersLexLSI, device) -> di
         tol_ld=params.tol_linear_dependence, tol_feas=params.tol_feasibility,
         tol_wrong=params.tol_wrong_sign_lambda, tol_correct=params.tol_correct_sign_lambda,
         max_fact=params.max_number_of_factorizations,
-        deact_first=params.deactivate_first_wrong_sign)
+        deact_first=params.deactivate_first_wrong_sign,
+        log_cap=(params.max_number_of_factorizations + 2
+                 if params.log_working_set_enabled else 0),
+        cycling=params.cycling_handling_enabled, cyc_max=params.cycling_max_counter,
+        cyc_relax=params.cycling_relax_step)
 
 
 def _fused_tail(A, s: LexLSIState, it0=None, *, struct: Structure, params: ParametersLexLSI,
@@ -365,12 +576,20 @@ def _fused_tail(A, s: LexLSIState, it0=None, *, struct: Structure, params: Param
     state ``s``, or from a mid-solve state with per-instance iteration
     counters ``it0`` (``lexlsi.py:915-1050`` without compaction: a CUDA
     block per instance does not wait for the slowest instance of a tile,
-    so the trajectory is the same without it).  Instances still UNKNOWN
+    so the trajectory is the same without it).  The log and the cycling
+    detector continue from the state's and go back into it, with the
+    relaxed bounds, when their options are on.  Instances still UNKNOWN
     afterwards ran out of factorizations."""
     from .ops.fused import fused_active_set
 
+    log_on, cyc_on = params.log_working_set_enabled, params.cycling_handling_enabled
+    i32 = torch.int32
+    log_state = (s.log_obj, s.log_ctr, s.log_type, s.log_value, s.log_rank,
+                 s.log_cycling.to(i32), s.log_len, s.log_overflow.to(i32)) if log_on else None
+    cyc_state = (s.cyc_counter, s.cyc_prev_op, s.cyc_prev_row, s.cyc_prev_type) if cyc_on else None
     out = fused_active_set(A, s.lb, s.ub, s.ctr_type, s.stamp, s.next_stamp, s.x, s.v,
-                           s.Ax, s.n_fact, it0, **active_set_kwargs(struct, params, A.device))
+                           s.Ax, s.n_fact, it0, log_state, cyc_state,
+                           **active_set_kwargs(struct, params, A.device))
     status = torch.where(out.status == int(TerminationStatus.UNKNOWN),
                          int(TerminationStatus.MAX_NUMBER_OF_FACTORIZATIONS_EXCEEDED),
                          out.status).to(torch.int32)
@@ -379,6 +598,164 @@ def _fused_tail(A, s: LexLSIState, it0=None, *, struct: Structure, params: Param
         ctr_type=out.ctr_type, stamp=out.stamp, next_stamp=out.next_stamp,
         it=out.it, n_act=out.n_act, n_deact=out.n_deact, n_fact=out.n_fact,
         status=status)
+    if log_on:
+        state = dataclasses.replace(
+            state, log_obj=out.log_obj, log_ctr=out.log_ctr, log_type=out.log_type,
+            log_value=out.log_value, log_rank=out.log_rank,
+            log_cycling=out.log_cycling.bool(), log_len=out.log_len,
+            log_overflow=out.log_overflow.bool())
+    if cyc_on:
+        state = dataclasses.replace(
+            state, lb=out.lb, ub=out.ub, cyc_counter=out.cyc_counter,
+            cyc_prev_op=out.cyc_prev_op, cyc_prev_row=out.cyc_prev_row,
+            cyc_prev_type=out.cyc_prev_type)
     if return_factors:
         return state, (out.rpad, out.posf, out.ranks)
     return state
+
+
+# ---------------------------------------------------------------------------
+# The exact tier, natively batched: kernel B1 factorizes every iteration
+# ---------------------------------------------------------------------------
+
+
+def _lambda_sweep(f, Ag, ctr_type, stamp, struct: Structure, params: ParametersLexLSI):
+    """Find an active constraint to remove (``lexlsi.py:325-398`` without
+    regularization): every objective's multipliers from the factorization
+    in one transposed pass, then the removal selection.  Returns (found,
+    row (-1 where none), selected value)."""
+    from . import lexlse
+
+    lam_all = lexlse.sensitivities_all(f)
+    return _select_removal(lam_all, ctr_type, stamp, Ag, f.fixed_mask, struct, params)
+
+
+def _instance_alive(s: LexLSIState, max_fact: int):
+    return (s.status == int(TerminationStatus.UNKNOWN)) & ((s.it == 0) | (s.n_fact < max_fact))
+
+
+def _verify_with_f(s: LexLSIState, A, Ag, f, alive, struct: Structure,
+                   params: ParametersLexLSI) -> LexLSIState:
+    """One active-set iteration of every instance given the factorization
+    ``f`` of its current working set (``lexlsi.py:570-720`` without trace
+    and ``use_phase1_v0``): solve, step, ratio test, removal sweep,
+    working-set update, log and cycling handling.  Instances that are not
+    ``alive`` keep their state."""
+    from . import lexlse
+
+    B, m, _ = A.shape
+    i32 = torch.int32
+    iota_m = torch.arange(m, device=A.device)
+    dx = lexlse.solve(f) - s.x
+    Adx, dv = _form_step(A, s.lb, s.ub, s.ctr_type, s.Ax, s.v, dx)
+    alpha, brow, btype, blocking = _check_blocking(
+        s.ctr_type, s.Ax, Adx, s.v, dv, s.lb, s.ub, params.tol_feasibility)
+    # the sweep's result counts only where nothing blocks
+    found_rm, rrow, rval = _lambda_sweep(f, Ag, s.ctr_type, s.stamp, struct, params)
+    do_remove = ~blocking & found_rm
+    solved = ~blocking & ~found_rm
+
+    at_b = blocking[:, None] & (iota_m == brow[:, None])
+    at_r = do_remove[:, None] & (iota_m == rrow[:, None])
+    ctr_type = torch.where(at_b, btype[:, None],
+                           torch.where(at_r, int(CtrType.INACTIVE), s.ctr_type)).to(i32)
+    stamp = torch.where(at_b, s.next_stamp[:, None], torch.where(at_r, -1, s.stamp)).to(i32)
+    status = torch.where(solved, int(TerminationStatus.PROBLEM_SOLVED), s.status).to(i32)
+    new = dict(
+        dx=dx, dv=dv, Adx=Adx, ctr_type=ctr_type, stamp=stamp,
+        next_stamp=s.next_stamp + blocking.to(i32), it=s.it + 1,
+        n_act=s.n_act + blocking.to(i32), n_deact=s.n_deact + do_remove.to(i32),
+        n_fact=s.n_fact + (s.it > 0).to(i32))
+
+    log = (s.log_obj, s.log_ctr, s.log_type, s.log_value, s.log_rank, s.log_cycling,
+           s.log_len, s.log_overflow)
+    if params.log_working_set_enabled:
+        log = _log_append(log, alive, blocking, do_remove, brow, rrow, btype, alpha, rval,
+                          f.total_rank, _log_row_table(struct.dims, A.device))
+    if params.cycling_handling_enabled:
+        rm_type = s.ctr_type.gather(1, rrow.clamp(min=0).long()[:, None])[:, 0]
+        cyc, lb, ub, status, log_cycling = _cycling_step(
+            (s.cyc_counter, s.cyc_prev_op, s.cyc_prev_row, s.cyc_prev_type), s.lb, s.ub,
+            status, log[5], log[6], alive, blocking, do_remove, brow, rrow, btype, rm_type,
+            params.cycling_max_counter, params.cycling_relax_step)
+        log = log[:5] + (log_cycling,) + log[6:]
+        new.update(lb=lb, ub=ub, cyc_counter=cyc[0], cyc_prev_op=cyc[1], cyc_prev_row=cyc[2],
+                   cyc_prev_type=cyc[3])
+    new.update(zip(("log_obj", "log_ctr", "log_type", "log_value", "log_rank", "log_cycling",
+                    "log_len", "log_overflow"), log))
+
+    # step (lexlsi.h:1243-1250)
+    take = (alpha > 0.0)[:, None]
+    a1 = alpha[:, None]
+    new.update(x=torch.where(take, s.x + a1 * dx, s.x), v=torch.where(take, s.v + a1 * dv, s.v),
+               Ax=torch.where(take, s.Ax + a1 * Adx, s.Ax), status=status)
+    return dataclasses.replace(s, **{
+        k: torch.where(alive.reshape((-1,) + (1,) * (v.dim() - 1)), v, getattr(s, k))
+        for k, v in new.items()})
+
+
+def solve_core_batched(
+    A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, reg,
+    struct: Structure, params: ParametersLexLSI,
+    x_guess_specified: bool, v0_specified: bool,
+) -> LexLSIState:
+    """Natively batched whole solver, the exact tier
+    (``lexlsi.py:775-834``): phase 1, then a loop whose every pass builds
+    the masked subproblem of each instance, factorizes it through kernel
+    B1 (one launch per level; its plain version for CPU tensors) and runs
+    :func:`_verify_with_f`.  Terminated instances are frozen, and the loop
+    reads ``alive.any()`` once per pass.  All arrays carry a leading batch
+    axis except ``reg`` (unused: regularization is not ported).  Honours
+    both removal strategies, simple bounds, the working-set log and
+    cycling handling; raises ``LexLSError`` for regularization, trace and
+    ``use_phase1_v0``."""
+    from .ops import factorize_fast_batched
+
+    _check_supported(params, "solve_core_batched")
+    full_fp32()
+    A, lb, ub = A.contiguous(), lb.contiguous(), ub.contiguous()
+    s = _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
+                       struct, params, x_guess_specified, v0_specified)
+    max_fact = params.max_number_of_factorizations
+    while True:
+        alive = _instance_alive(s, max_fact)
+        if not bool(alive.any()):
+            break
+        Ag, bg, fixed_mask, fixed_val = _masked_general(A, s.lb, s.ub, s.ctr_type, struct)
+        f = factorize_fast_batched(Ag, bg, struct.lexlse_dims, params.lexlse_parameters(),
+                                   fixed_mask=fixed_mask, fixed_val=fixed_val)
+        s = _verify_with_f(s, A, Ag, f, alive, struct, params)
+    status = torch.where(s.status == int(TerminationStatus.UNKNOWN),
+                         int(TerminationStatus.MAX_NUMBER_OF_FACTORIZATIONS_EXCEEDED),
+                         s.status).to(torch.int32)
+    return dataclasses.replace(s, status=status)
+
+
+# ---------------------------------------------------------------------------
+# Host helper
+# ---------------------------------------------------------------------------
+
+
+def initial_activation(prob, active_guess: Optional[np.ndarray] = None):
+    """Initial (ctr_type, stamp, next_stamp) of one hierarchy, NumPy in
+    and out (``lexlsi.py:1132-1153``): equality constraints (lb == ub to
+    1e-15; general rows only with a nonzero normal, ``lexlsi.h:367-385``)
+    activate in row order, then the LB/UB rows of the user's guess
+    (``api_activate``, ``lexlsi.h:120-136``: EQ cannot be set, and a row
+    that already has a type keeps it)."""
+    lb, ub, A = np.asarray(prob.lb), np.asarray(prob.ub), np.asarray(prob.A)
+    d0 = prob.dims[0] if prob.simple_bounds else 0
+    eq = np.abs(lb - ub) < 1e-15
+    eq[d0:] &= (A[d0:] ** 2).sum(axis=1) > 0
+    ctr_type = np.where(eq, int(CtrType.ACTIVE_EQ), int(CtrType.INACTIVE)).astype(np.int32)
+    stamp = np.full(len(lb), -1, dtype=np.int32)
+    c = int(eq.sum())
+    stamp[eq] = np.arange(c, dtype=np.int32)
+    if active_guess is not None:
+        guess = np.asarray(active_guess, np.int32)
+        g = (ctr_type == int(CtrType.INACTIVE)) & (
+            (guess == int(CtrType.ACTIVE_LB)) | (guess == int(CtrType.ACTIVE_UB)))
+        ctr_type[g] = guess[g]
+        stamp[g] = c + np.arange(int(g.sum()), dtype=np.int32)
+        c += int(g.sum())
+    return ctr_type, stamp, np.int32(c)

@@ -5,12 +5,13 @@
 to termination for every instance of a batch.  It replaces the Pallas TPU
 kernel ``lexls_tpu/ops/fused.py::fused_active_set`` (``pl.pallas_call``
 at ``fused.py:966``): general levels with an optional simple-bounds level
-(``d0 > 0``), the ``iter_cap``/``it0`` pause and resume, and the export
-of the last factorization (per-level R, positions, ranks) that the
-carried-factorization tracker starts from.  The working-set log and
-cycling handling are not ported.  On a CUDA tensor it launches
-``csrc/fused.cu`` (one thread block per instance, which loops until its
-own instance terminates or pauses); on a CPU tensor it runs
+(``d0 > 0``), the ``iter_cap``/``it0`` pause and resume, the export of
+the last factorization (per-level R, positions, ranks) that the
+carried-factorization tracker starts from, the working-set log
+(``log_cap`` > 0) and cycling handling (``cycling``), whose states come
+in and go out so that a paused call resumes them.  On a CUDA tensor it
+launches ``csrc/fused.cu`` (one thread block per instance, which loops
+until its own instance terminates or pauses); on a CPU tensor it runs
 ``fused_active_set_ref``, a batched torch transliteration of the kernel's
 stages with per-instance freezing, written for clarity.
 
@@ -29,7 +30,17 @@ from typing import NamedTuple
 
 import torch
 
-from ..lexlsi import _fixed_variables, _is_active, _rhs_of_type
+from ..lexlsi import (
+    _check_blocking,
+    _cycling_step,
+    _empty_log,
+    _fixed_variables,
+    _initial_cycling,
+    _is_active,
+    _log_append,
+    _log_row_table,
+    _rhs_of_type,
+)
 from ..types import CtrType, TerminationStatus
 from . import _build
 from .panel_lqr import INT_MAX, _SUFFIX, _check_cuda_args, _panel_step
@@ -42,7 +53,11 @@ class ActiveSetResult(NamedTuple):
     (B, n) and ``ranks`` (B, p) describe the factorization of the
     instance's last iteration in this call: per level, R in pivot order
     (meaningful on ``[:rank, :rank]``), the column positions, the ranks;
-    zeros / ``arange(n)`` / zeros where the call ran no iteration."""
+    zeros / ``arange(n)`` / zeros where the call ran no iteration.
+    ``lb``/``ub`` are the bounds as cycling handling relaxed them (the
+    inputs themselves when it is off); the log is ``log_*`` with (B,
+    log_cap) entries, ``log_len`` and ``log_overflow`` (flags as int32),
+    the cycling detector ``cyc_*`` (B,)."""
 
     x: torch.Tensor
     v: torch.Tensor
@@ -61,6 +76,20 @@ class ActiveSetResult(NamedTuple):
     rpad: torch.Tensor
     posf: torch.Tensor
     ranks: torch.Tensor
+    lb: torch.Tensor
+    ub: torch.Tensor
+    log_obj: torch.Tensor
+    log_ctr: torch.Tensor
+    log_type: torch.Tensor
+    log_value: torch.Tensor
+    log_rank: torch.Tensor
+    log_cycling: torch.Tensor
+    log_len: torch.Tensor
+    log_overflow: torch.Tensor
+    cyc_counter: torch.Tensor
+    cyc_prev_op: torch.Tensor
+    cyc_prev_row: torch.Tensor
+    cyc_prev_type: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
@@ -109,30 +138,6 @@ def _backsub(R, seg, rank, K):
         acc[:, :j] -= yj[:, None] * R[:, :j, j]
         y[:, j] = yj
     return y
-
-
-def _check_blocking(ct, Ax, Adx, v, dv, lb, ub, tol_feas):
-    """Ratio test over inactive rows (``fused.py:150-174``), first-minimum
-    tie-break.  Returns (alpha, row (-1 if none), type, blocking)."""
-    B, m = ct.shape
-    iota_m = torch.arange(m, device=ct.device)
-    inactive = ct == int(CtrType.INACTIVE)
-    den = Adx - dv
-    neg = den < -tol_feas
-    pos = den > tol_feas
-    eligible = inactive & (neg | pos)
-    rhs = torch.where(neg, lb, ub)
-    typ = torch.where(neg, int(CtrType.ACTIVE_LB), int(CtrType.ACTIVE_UB))
-    num = rhs - Ax + v
-    ratio = (num / torch.where(eligible, den, 1.0)).clamp_min(0.0)
-    masked = torch.where(eligible, ratio, torch.inf)
-    amin = masked.amin(1)
-    first = eligible & (masked == amin[:, None])
-    row = torch.where(first, iota_m, INT_MAX).amin(1)
-    blocking = (amin < 1.0) & (row < m)
-    alpha = torch.where(blocking, amin, 1.0)
-    btype = torch.where(blocking, typ.gather(1, row.clamp(max=m - 1)[:, None])[:, 0], 0)
-    return alpha, torch.where(blocking, row, -1), btype, blocking
 
 
 def _iteration(A, lb, ub, ct, st, ns, x, v, Ax, *, dims, d0, var_idx, prio, elig, tol_ld,
@@ -262,6 +267,7 @@ def _iteration(A, lb, ub, ct, st, ns, x, v, Ax, *, dims, d0, var_idx, prio, elig
     sense = ct
     found = torch.zeros(B, dtype=torch.bool, device=dev)
     sel_row = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    sel_val = torch.zeros(B, dtype=dtype, device=dev)
     for j in range(p):
         vals = lam[:, j]
         if d0:
@@ -278,13 +284,16 @@ def _iteration(A, lb, ub, ct, st, ns, x, v, Ax, *, dims, d0, var_idx, prio, elig
         if deact_first:
             kmin = torch.where(wrong, st, INT_MAX).amin(1)
             first = wrong & (st == kmin[:, None])
+            val_j = torch.zeros_like(sel_val)
         else:
             amin = torch.where(wrong, a, torch.inf).amin(1)
             tie = wrong & (a == amin[:, None])
             pmin = torch.where(tie, prio[j], INT_MAX).amin(1)
             first = tie & (prio[j] == pmin[:, None])
+            val_j = amin
         row_j = torch.where(first, iota_m, INT_MAX).amin(1)
         sel_row = torch.where(found_j & ~found, row_j, sel_row)
+        sel_val = torch.where(found_j & ~found, val_j, sel_val)
         found = found | found_j
     want_sweep = ~blocking
     do_remove = want_sweep & found
@@ -299,13 +308,17 @@ def _iteration(A, lb, ub, ct, st, ns, x, v, Ax, *, dims, d0, var_idx, prio, elig
     return dict(x=x + afl * dx, v=v + afl * dv, Ax=Ax + afl * Adx, dx=dx, dv=dv, Adx=Adx,
                 ct=new_ct.to(torch.int32), st=new_st.to(torch.int32),
                 blocking=blocking, do_remove=do_remove, solved=solved,
+                alpha=alpha, brow=brow, btype=btype, sel_row=sel_row, sel_val=sel_val,
+                rm_type=ct.gather(1, sel_row.clamp(min=0)[:, None])[:, 0], total_rank=ci,
                 R=[None if lvl is None else lvl[6] for lvl in levels],
                 rank=[None if lvl is None else lvl[5] for lvl in levels], pos=pos)
 
 
-def fused_active_set_ref(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, it0=None, *,
+def fused_active_set_ref(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, it0=None,
+                         log_state=None, cyc_state=None, *,
                          dims, prio, elig, tol_ld, tol_feas, tol_wrong, tol_correct,
-                         max_fact, deact_first, d0=0, var_idx=(), iter_cap=0) -> ActiveSetResult:
+                         max_fact, deact_first, d0=0, var_idx=(), iter_cap=0, log_cap=0,
+                         cycling=False, cyc_max=50, cyc_relax=1e-8) -> ActiveSetResult:
     """Plain version of :func:`fused_active_set`: iterate until no
     instance is alive, freezing terminated and paused instances."""
     B, m, n = A.shape
@@ -324,6 +337,9 @@ def fused_active_set_ref(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fac
     rpad = torch.zeros(B, p, kmax, kmax, dtype=dtype, device=dev)
     posf = torch.arange(n, **i32).expand(B, n)
     ranks = torch.zeros(B, p, **i32)
+    log = _empty_log(B, log_cap, dtype, dev) if log_state is None else tuple(log_state)
+    cyc = _initial_cycling(B, dev) if cyc_state is None else tuple(cyc_state)
+    row_table = _log_row_table(((d0,) if d0 else ()) + tuple(dims), dev)
     kw = dict(dims=dims, d0=d0, var_idx=var_idx, prio=prio, elig=elig, tol_ld=tol_ld,
               tol_feas=tol_feas, tol_wrong=tol_wrong, tol_correct=tol_correct,
               deact_first=deact_first)
@@ -352,13 +368,22 @@ def fused_active_set_ref(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fac
         posf = torch.where(a1, r["pos"], posf)
         ai = alive.to(torch.int32)
         status = torch.where(alive & r["solved"], int(TerminationStatus.PROBLEM_SOLVED), status)
+        # the log and the detector see this iteration's change (fused.py:679-746)
+        change = (alive, r["blocking"], r["do_remove"], r["brow"], r["sel_row"], r["btype"])
+        if log_cap:
+            log = _log_append(log, *change, r["alpha"], r["sel_val"], r["total_rank"], row_table)
+        if cycling:
+            cyc, lb, ub, status, log_cycling = _cycling_step(
+                cyc, lb, ub, status, log[5], log[6], *change, r["rm_type"], cyc_max, cyc_relax)
+            log = log[:5] + (log_cycling,) + log[6:]
         ns = ns + ai * r["blocking"].to(torch.int32)
         na = na + ai * r["blocking"].to(torch.int32)
         nd = nd + ai * r["do_remove"].to(torch.int32)
         nf = nf + ai * (it > 0).to(torch.int32)
         it = it + ai
     return ActiveSetResult(x, v, dx, dv, Ax, Adx, ct, st, ns, it, na, nd, nf,
-                           status.to(torch.int32), rpad, posf.contiguous(), ranks)
+                           status.to(torch.int32), rpad, posf.contiguous(), ranks, lb, ub,
+                           *log, *cyc)
 
 
 # ---------------------------------------------------------------------------
@@ -387,9 +412,11 @@ def _var_index(var_idx: tuple, n: int, device: torch.device) -> torch.Tensor:
     return torch.tensor(list(var_idx) or [0], dtype=torch.int32, device=device)
 
 
-def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, it0=None, *,
+def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, it0=None,
+                     log_state=None, cyc_state=None, *,
                      dims, prio, elig, tol_ld, tol_feas, tol_wrong, tol_correct,
-                     max_fact, deact_first, d0=0, var_idx=(), iter_cap=0) -> ActiveSetResult:
+                     max_fact, deact_first, d0=0, var_idx=(), iter_cap=0, log_cap=0,
+                     cycling=False, cyc_max=50, cyc_relax=1e-8) -> ActiveSetResult:
     """Run the active-set loop of a batch to termination, or to a pause.
 
     A (B, m, n); lb, ub, v, Ax (B, m); x (B, n); ctr_type, stamp (B, m)
@@ -401,15 +428,27 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
     ``iter_cap`` > 0 pauses an instance, status UNKNOWN, after that many
     iterations of this call.  An instance that is not alive on entry
     (``it0 > 0`` and ``n_fact >= max_fact``) runs nothing and keeps its
-    inputs.  Launches the CUDA kernel for CUDA tensors, runs the plain
-    version for CPU tensors, and raises otherwise.
+    inputs.
+
+    ``log_cap`` > 0 turns the working-set log on at that capacity and
+    ``cycling`` the cycling handling (``cyc_max``, ``cyc_relax``:
+    ``cycling_max_counter`` and ``cycling_relax_step``).  ``log_state`` =
+    (obj, ctr, type, value, rank, cycling (B, log_cap); len, overflow
+    (B,)), flags int32, and ``cyc_state`` = (counter, previous operation,
+    row, type), each (B,) int32, are the log and the detector to resume
+    from (empty and initial when omitted); both come back in the result
+    with the relaxed bounds.
+
+    Launches the CUDA kernel for CUDA tensors, runs the plain version for
+    CPU tensors, and raises otherwise.
     """
     kw = dict(dims=dims, prio=prio, elig=elig, tol_ld=tol_ld, tol_feas=tol_feas,
               tol_wrong=tol_wrong, tol_correct=tol_correct, max_fact=max_fact,
-              deact_first=deact_first, d0=d0, var_idx=var_idx, iter_cap=iter_cap)
+              deact_first=deact_first, d0=d0, var_idx=var_idx, iter_cap=iter_cap,
+              log_cap=log_cap, cycling=cycling, cyc_max=cyc_max, cyc_relax=cyc_relax)
     if A.device.type == "cpu":
         return fused_active_set_ref(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax,
-                                    n_fact, it0, **kw)
+                                    n_fact, it0, log_state, cyc_state, **kw)
     if A.device.type != "cuda":
         raise ValueError(f"fused_active_set: unsupported device {A.device}")
     B, m, n = A.shape
@@ -420,14 +459,26 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
         raise ValueError("fused_active_set: dims/d0/var_idx/prio/elig do not match A")
     if it0 is None:
         it0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    # the log and the detector are per-instance state that the kernel
+    # updates in place: copies of what was given when their option is on,
+    # untouched placeholders otherwise; so are the bounds under cycling
+    log = _empty_log(B, log_cap, dtype, dev) if log_state is None else tuple(log_state)
+    cyc = _initial_cycling(B, dev) if cyc_state is None else tuple(cyc_state)
+    if log_cap:
+        log = tuple(t.clone() for t in log)
+    if cycling:
+        cyc = tuple(t.clone() for t in cyc)
+        lb, ub = lb.clone(), ub.clone()
     for t, shape in ((lb, (B, m)), (ub, (B, m)), (v, (B, m)), (Ax, (B, m)), (x, (B, n)),
                      (ctr_type, (B, m)), (stamp, (B, m)), (next_stamp, (B,)), (n_fact, (B,)),
-                     (it0, (B,))):
+                     (it0, (B,)), *((t, (B, log_cap)) for t in log[:6]),
+                     *((t, (B,)) for t in log[6:] + cyc)):
         if t.shape != shape:
             raise ValueError(f"fused_active_set: expected shape {shape}, got {tuple(t.shape)}")
     vidx = _var_index(tuple(var_idx), n, dev)
-    _check_cuda_args([A, lb, ub, x, v, Ax],
-                     [ctr_type, stamp, next_stamp, n_fact, it0, prio, elig, vidx], A.dtype)
+    _check_cuda_args([A, lb, ub, x, v, Ax, log[3]],
+                     [ctr_type, stamp, next_stamp, n_fact, it0, prio, elig, vidx,
+                      *log[:3], *log[4:], *cyc], A.dtype)
     suffix, c_real = _SUFFIX[A.dtype]
     kmax = _kmax(dims, n)
     dmax = max(1, max(dims, default=1))
@@ -450,20 +501,23 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
     work = torch.empty(B, wstride, dtype=dtype, device=dev)
     iwork = torch.empty(B, iwstride, dtype=torch.int32, device=dev)
     name = f"lexls_fused_active_set_{suffix}"
-    fn = _build.bind(name, (_P,) * 27 + (_I,) * 7 + (c_real,) * 4 + (_I, _I, _I, _P))
+    fn = _build.bind(name, (_P,) * 39 + (_I,) * 7 + (c_real,) * 4 + (_I,) * 6
+                     + (c_real, _P))
     err = fn(A.data_ptr(), lb.data_ptr(), ub.data_ptr(), ct.data_ptr(), st.data_ptr(),
              ns.data_ptr(), x.data_ptr(), v.data_ptr(), Ax.data_ptr(), nf.data_ptr(),
              it0.data_ptr(), dx.data_ptr(), dv.data_ptr(), Adx.data_ptr(), it.data_ptr(),
              na.data_ptr(), nd.data_ptr(), status.data_ptr(), rpad.data_ptr(),
              posf.data_ptr(), ranks.data_ptr(), lvl.data_ptr(), prio.data_ptr(),
              elig.data_ptr(), vidx.data_ptr(), work.data_ptr(), iwork.data_ptr(),
+             *(t.data_ptr() for t in log + cyc),
              B, m, n, p, d0, kmax, dmax, tol_ld, tol_feas, tol_wrong, tol_correct,
-             int(max_fact), int(bool(deact_first)), int(iter_cap),
+             int(max_fact), int(bool(deact_first)), int(iter_cap), int(log_cap),
+             int(bool(cycling)), int(cyc_max), cyc_relax,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)
     fused_active_set.launches += 1
     return ActiveSetResult(x, v, dx, dv, Ax, Adx, ct, st, ns, it, na, nd, nf, status,
-                           rpad, posf, ranks)
+                           rpad, posf, ranks, lb, ub, *log, *cyc)
 
 
 fused_active_set.launches = 0

@@ -4,7 +4,9 @@ Step 0 of each sequence solves cold; step t > 0 starts from step t-1's
 solution and final active set (the warm-start carry ``(x, ctr_type)``,
 and with ``tracked=True`` the carried factorization as well).
 Counterpart of ``lexls_tpu/sequence.py``: the JAX package's ``lax.scan``
-over steps is a Python loop here, each step one batched whole solve.
+over steps is a Python loop here, each step one batched whole solve,
+through the whole-solve tier (kernel B2) or through the exact tier
+(kernel B1 in every iteration).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from .lexlsi import Structure, full_fp32, solve_core_fused
+from .lexlsi import Structure, full_fp32, solve_core_batched, solve_core_fused
 from .types import CtrType, ParametersLexLSI
 
 
@@ -41,6 +43,27 @@ def _device_initial_activation(A, lb, ub, guess_type, struct: Structure):
     return ctr, stamp.to(torch.int32), next_stamp
 
 
+def _run_sequence(A_seq, lb_seq, ub_seq, struct: Structure, step):
+    """The loop over the T steps of a batch of sequences: step 0 cold,
+    every later step from the previous step's x and working set.
+    ``step(t, A, lb, ub, ctr_type0, stamp0, next_stamp0, x, v0)`` solves
+    one step and returns its state.  Returns the stacked per-step (x, v,
+    status, iterations, factorizations, ctr_type)."""
+    full_fp32()
+    B, T, m, n = A_seq.shape
+    x = torch.zeros(B, n, dtype=A_seq.dtype, device=A_seq.device)
+    v0 = torch.zeros(B, m, dtype=A_seq.dtype, device=A_seq.device)
+    ct = torch.zeros(B, m, dtype=torch.int32, device=A_seq.device)
+    outs = []
+    for t in range(T):
+        A, lb, ub = (a[:, t].contiguous() for a in (A_seq, lb_seq, ub_seq))
+        c, s, ns = _device_initial_activation(A, lb, ub, ct, struct)
+        st = step(t, A, lb, ub, c, s, ns, x, v0)
+        x, ct = st.x, st.ctr_type
+        outs.append((st.x, st.v, st.status, st.it, st.n_fact, st.ctr_type))
+    return tuple(torch.stack(field, 1) for field in zip(*outs))
+
+
 def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
                                  params: ParametersLexLSI, tracked: bool = False,
                                  ns_iters: int = 2, cert_tol: Optional[float] = None,
@@ -66,26 +89,33 @@ def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
     """
     from . import tracker as trk
 
-    full_fp32()
-    B, T, m, n = A_seq.shape
-    x = torch.zeros(B, n, dtype=A_seq.dtype, device=A_seq.device)
-    v0 = torch.zeros(B, m, dtype=A_seq.dtype, device=A_seq.device)
-    ct = torch.zeros(B, m, dtype=torch.int32, device=A_seq.device)
     tkw = dict(struct=struct, params=params, ns_iters=ns_iters, cert_tol=cert_tol, stats=stats)
     carried = None
-    outs = []
-    for t in range(T):
-        A, lb, ub = (a[:, t].contiguous() for a in (A_seq, lb_seq, ub_seq))
-        c, s, ns = _device_initial_activation(A, lb, ub, ct, struct)
+
+    def step(t, A, lb, ub, c, s, ns, x, v0):
+        nonlocal carried
         if not tracked:
-            st = solve_core_fused(A, lb, ub, c, s, ns, x, v0, reg, struct=struct,
-                                  params=params, x_guess_specified=t > 0, v0_specified=False)
-        elif t == 0:
+            return solve_core_fused(A, lb, ub, c, s, ns, x, v0, reg, struct=struct,
+                                    params=params, x_guess_specified=t > 0, v0_specified=False)
+        if t == 0:
             st, carried = trk.solve_core_cold_tracked(A, lb, ub, c, s, ns, x, v0, **tkw)
         else:
             st, carried = trk.solve_core_tracked(A, lb, ub, c, s, ns, x, v0, carried=carried,
                                                  loop_cap=loop_cap, trip1_noext=trip1_noext,
                                                  **tkw)
-        x, ct = st.x, st.ctr_type
-        outs.append((st.x, st.v, st.status, st.it, st.n_fact, st.ctr_type))
-    return tuple(torch.stack(field, 1) for field in zip(*outs))
+        return st
+
+    return _run_sequence(A_seq, lb_seq, ub_seq, struct, step)
+
+
+def solve_sequence_batched_native(A_seq, lb_seq, ub_seq, reg, struct: Structure,
+                                  params: ParametersLexLSI):
+    """Batched warm-started sequences through the natively batched exact
+    tier (:func:`lexls_tpu_torch.solve_core_batched`, kernel B1 in every
+    iteration; ``sequence.py:117-165``).  ``A_seq`` is (B, T, m, n); same
+    outputs as :func:`solve_sequence_batched_fused`."""
+    def step(t, A, lb, ub, c, s, ns, x, v0):
+        return solve_core_batched(A, lb, ub, c, s, ns, x, v0, reg, struct=struct, params=params,
+                                  x_guess_specified=t > 0, v0_specified=False)
+
+    return _run_sequence(A_seq, lb_seq, ub_seq, struct, step)

@@ -10,14 +10,18 @@ agree, since float32 roundoff may flip a pivot choice between two column
 norms that tie to ~1e-6.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import lexls_tpu_torch as lt
+from lexls_tpu_torch import convert
 from lexls_tpu_torch.lexlsi import _initial_state, active_set_kwargs
 from lexls_tpu_torch.oracle import random_inequality_hierarchy
 from lexls_tpu_torch.ops import (
+    ActiveSetResult,
     fused_active_set,
     fused_active_set_ref,
     panel_factorize,
@@ -43,17 +47,17 @@ def _panel_args(device, dtype, B=32, dim=12, n=20, seed=5):
     return [a.to(device) for a in args]
 
 
-def _fused_problem(device, dtype, B=32, seed=17, simple=False):
+def _fused_problem(device, dtype, B=32, seed=17, simple=False, **options):
     """Phase-1 state of a cold solve of 4 levels of 6 rows over 20
     variables (with ``simple``: 8 bound rows, then levels of 6, 25 and 6
     rows, one of them wider than the 20 variables), and B2's keyword
-    arguments."""
+    arguments; ``options`` are further solver parameters."""
     rng = np.random.default_rng(seed)
     dims = [8, 6, 25, 6] if simple else [6, 6, 6, 6]
     prob = random_inequality_hierarchy(rng, 20, dims, equality_fraction=0.1,
                                        tight_fraction=0.5, simple_bounds=simple)
     struct = lt.Structure.of(prob)
-    params = lt.ParametersLexLSI(max_number_of_factorizations=200, **BENCH_TOLS)
+    params = lt.ParametersLexLSI(max_number_of_factorizations=200, **BENCH_TOLS, **options)
     t = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)  # noqa: E731
     noise = 1e-2 * rng.standard_normal((B,) + prob.A.shape)
     noise[:, :struct.d0] = 0.0  # bound rows stay unit rows
@@ -194,6 +198,123 @@ def test_fused_kernel_simple_bounds_matches_plain(cuda_device, dtype):  # noqa: 
     same = _assert_results_equal(got, want, dtype)
     assert bool((got.status == 0).all()) and int(got.it.max()) > 2
     assert int(same.sum()) >= (len(same) if dtype == torch.float64 else len(same) // 2)
+
+
+_STATE_FIELDS = ActiveSetResult._fields[17:]
+
+
+def _assert_log_and_cycling_equal(got, want):
+    """The bounds, the log and the detector of two float64 results: ints
+    and bounds equal, logged values to 1e-8."""
+    for f in _STATE_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        if g.dtype.is_floating_point and f == "log_value":
+            torch.testing.assert_close(g, w, atol=1e-8, rtol=0, msg=f)
+        else:
+            assert torch.equal(g, w), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("simple", [False, True])
+def test_fused_kernel_log_and_cycling_match_plain(cuda_device, simple):  # noqa: F811
+    """B2 with the working-set log and cycling handling on, float64: the
+    log, the detector and the bounds against the plain version; then
+    paused by ``iter_cap`` and resumed with ``it0``, ``log_state`` and
+    ``cyc_state`` against the uninterrupted launch."""
+    args, kw = _fused_problem(cuda_device, torch.float64, simple=simple,
+                              log_working_set_enabled=True, cycling_handling_enabled=True)
+    assert kw["log_cap"] == 202 and kw["cycling"]
+    got = fused_active_set(*args, **kw)
+    want = fused_active_set_ref(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_results_equal(got, want, torch.float64)
+    _assert_log_and_cycling_equal(got, want)
+    assert int(got.log_len.min()) > 0 and bool((got.log_len == got.n_act + got.n_deact).all())
+    assert bool((got.log_type == 0).any())  # removals are logged too
+
+    got1 = fused_active_set(*args, iter_cap=3, **kw)
+    paused = got1.status == -1
+    assert bool(paused.any())
+    nf = torch.where(paused, got1.n_fact, kw["max_fact"]).to(torch.int32)
+    got2 = fused_active_set(
+        args[0], got1.lb, got1.ub, got1.ctr_type, got1.stamp, got1.next_stamp, got1.x, got1.v,
+        got1.Ax, nf, got1.it, got1[19:27], got1[27:31], **kw)
+    torch.cuda.synchronize()
+    sel = lambda r: type(r)(*(t[paused] for t in r))  # noqa: E731
+    _assert_log_and_cycling_equal(sel(got2), sel(got))
+    for f in ("status", "it", "ctr_type", "stamp"):
+        assert torch.equal(getattr(got2, f)[paused], getattr(got, f)[paused]), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_counter", [50, 0])
+def test_fused_kernel_cycling_fixture(cuda_device, max_counter):  # noqa: F811
+    """The frozen degenerate instance that re-adds the row it just removed
+    (``tests/golden/cycling_fixtures.npz``, n=4, dims (2, 3)) through the
+    kernel: one relaxation and PROBLEM_SOLVED, or with
+    ``cycling_max_counter=0`` PROBLEM_SOLVED_CYCLING_HANDLING; against the
+    plain version on the CPU."""
+    fz = np.load(os.path.join(os.path.dirname(__file__), "golden", "cycling_fixtures.npz"))
+    A, lb, ub, guess = (fz[f"relax_once_{k}"] for k in ("A", "lb", "ub", "guess"))
+    prob = lt.InequalityHierarchy(A=A, lb=lb, ub=ub, dims=(2, 3), n_var=4)
+    params = lt.ParametersLexLSI(max_number_of_factorizations=60, cycling_handling_enabled=True,
+                                 log_working_set_enabled=True, cycling_max_counter=max_counter)
+    c0, s0, n0 = lt.initial_activation(prob, guess)
+
+    def run(device):
+        t = lambda a: torch.as_tensor(np.asarray(a)[None], device=device)  # noqa: E731
+        return lt.solve_core_fused(
+            t(A), t(lb), t(ub), t(c0), t(s0), t(n0), t(np.zeros(4)), t(np.zeros(5)), None,
+            struct=lt.Structure.of(prob), params=params, x_guess_specified=False,
+            v0_specified=False)
+
+    got, want = run(cuda_device), run("cpu")
+    assert (got.cyc_counter.tolist(), got.status.tolist()) == (([1], [0]) if max_counter else
+                                                               ([0], [1]))
+    for f, w in convert.state_to_numpy(want).items():
+        g = getattr(got, f).cpu().numpy()
+        if w.dtype.kind == "f" and f not in ("lb", "ub"):
+            np.testing.assert_allclose(g, w, atol=1e-8, rtol=0, err_msg=f)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("simple", [False, True])
+def test_solve_core_batched_on_the_card_matches_the_cpu(cuda_device, simple):  # noqa: F811
+    """The exact tier on CUDA tensors (kernel B1 once per level per pass,
+    plus phase 1) against the same on CPU tensors, float64, log and
+    cycling handling on: the same decisions, x and v to 1e-8."""
+    rng = np.random.default_rng(37)
+    dims = [5, 4, 6, 5] if simple else [4, 6, 5]
+    prob = random_inequality_hierarchy(rng, 14, dims, equality_fraction=0.1,
+                                       tight_fraction=0.6, simple_bounds=simple)
+    B = 16
+    noise = 1e-2 * rng.standard_normal((B,) + prob.A.shape)
+    noise[:, :prob.dims[0] * simple] = 0.0
+    params = lt.ParametersLexLSI(max_number_of_factorizations=100, log_working_set_enabled=True,
+                                 cycling_handling_enabled=True)
+    struct = lt.Structure.of(prob)
+
+    def run(device):
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        return lt.solve_core_batched(
+            t(prob.A + noise), t(np.tile(prob.lb, (B, 1))), t(np.tile(prob.ub, (B, 1))),
+            *lt.batched_initial_arrays(prob, B, device), None, struct=struct, params=params,
+            x_guess_specified=False, v0_specified=False)
+
+    panel_factorize.launches = 0
+    got = run(cuda_device)
+    p = len(struct.lexlse_dims)
+    assert panel_factorize.launches == p * (int(got.it.max()) + 1)
+    want = run("cpu")
+    assert bool((got.status == 0).all()) and int(got.n_deact.sum()) > 0
+    for f, w in convert.state_to_numpy(want).items():
+        g = getattr(got, f).cpu().numpy()
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, atol=1e-8, rtol=0, err_msg=f)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f)
 
 
 @pytest.mark.cuda

@@ -196,7 +196,7 @@ def test_select_removal_matches_jax(simple, deact_first):
                                  tol_wrong_sign_lambda=1e-8, tol_correct_sign_lambda=1e-12)
     wf, wrow = jtrk._select_removal(jnp.asarray(lam), jnp.asarray(ct), jnp.asarray(st),
                                     jnp.asarray(Agm), jnp.asarray(fixed), js, params)
-    gf, grow = ttrk._select_removal(_t(lam), _t(ct), _t(st), _t(Agm), _t(fixed), ts,
+    gf, grow, _ = ttrk._select_removal(_t(lam), _t(ct), _t(st), _t(Agm), _t(fixed), ts,
                                     convert.params_from(params))
     _equal(gf, wf)
     _equal(grow, wrow)

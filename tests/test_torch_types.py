@@ -74,7 +74,8 @@ def test_convert_round_trip():
         convert.hierarchy_from_numpy(A, np.ones(5), -np.ones(5), (2, 3))
     f, i, flag = convert.to_torch((A, np.arange(3), np.array([True])), "cpu", torch.float32)
     assert f.dtype == torch.float32 and i.dtype == torch.int32 and flag.dtype == torch.bool
-    state = lt.LexLSIState(*(torch.full((2,), k) for k in range(16)))
+    state = lt.LexLSIState(*(torch.full((2,), k)
+                             for k in range(len(dataclasses.fields(lt.LexLSIState)))))
     out = convert.state_to_numpy(state)
     assert set(out) == {f.name for f in dataclasses.fields(state)}
     np.testing.assert_array_equal(out["status"], [15, 15])

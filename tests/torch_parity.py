@@ -25,6 +25,27 @@ def assert_state_match(ref, got, msg=""):
                                    atol=1e-9, rtol=0, err_msg=f"{msg}:{f}")
 
 
+def assert_log_match(ref, got, msg="", cycling=False):
+    """The working-set log of a JAX solver state against the port's (where
+    the port keeps one: its log is empty when the option is off): entries,
+    lengths and flags equal, the logged values to atol 1e-9.  With
+    ``cycling`` also the detector's state, equal, and the relaxed bounds,
+    to atol 0."""
+    for f in ("log_obj", "log_ctr", "log_type", "log_rank", "log_len", "log_overflow",
+              "log_cycling") + (("cyc_counter", "cyc_prev_op", "cyc_prev_row", "cyc_prev_type")
+                                if cycling else ()):
+        g = getattr(got, f).cpu().numpy()
+        if g.size:
+            np.testing.assert_array_equal(g, np.asarray(getattr(ref, f)), err_msg=f"{msg}:{f}")
+    if got.log_value.numel():
+        np.testing.assert_allclose(got.log_value.cpu().numpy(), np.asarray(ref.log_value),
+                                   atol=1e-9, rtol=0, err_msg=f"{msg}:log_value")
+    if cycling:
+        for f in ("lb", "ub"):
+            np.testing.assert_allclose(getattr(got, f).cpu().numpy(), np.asarray(getattr(ref, f)),
+                                       atol=0, rtol=0, err_msg=f"{msg}:{f}")
+
+
 @pytest.fixture
 def cuda_device():
     """A CUDA device, or a skip: the kernels run only on the card."""
