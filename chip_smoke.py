@@ -7,17 +7,23 @@ Run from the root of a checkout on a machine with one NVIDIA GPU::
 
 Phases:
   1. the toolchain: torch/CUDA versions, device, triton, power limit;
-  2. build the CUDA kernels from ``lexls_tpu_torch/csrc`` with nvcc;
+  2. build the CUDA kernels from ``lexls_tpu_torch/csrc`` with nvcc
+     (ptxas registers and spills), and print for every shape below the
+     kernels' shared-memory bytes, the layout their rule picks (the large
+     array in shared or in device memory) and the resident blocks per SM;
   3. kernel B1 (panel factorization) against its plain version at the
-     bench level shape, plus a rank-deficient block, in float64 and float32;
+     bench level shape, plus a rank-deficient block, in float64 and
+     float32: the wrapper's call by CUDA events and the kernel's own device
+     time by events around its launch;
   4. kernel B2 (whole active-set solve) against its plain version on the
      bench problem, cold and warm, in float64 and float32, with its pause
      (``iter_cap=1``), resume (``it0``) and factor export; in float64 with
      the working-set log and cycling handling on (log, detector and
      bounds identical, also across a pause) and against the same launch
      with them off; timed with the log on and with both on beside the
-     times with them off, the warm call also under ``torch.profiler``,
-     which tells the kernel's own device time from its wrapper's copies;
+     times with them off, with the kernel's own device time and what else
+     the wrapper launches (nothing), and with the LOD in shared and in
+     device memory in turns;
   5. kernel B2 with simple bounds (``d0 > 0``) against its plain version at
      the ``test_01`` shape (n=88, 60 bound rows, general levels of 33, 3, 2
      and 97 rows), then the tracked path over that shape against the fused
@@ -41,7 +47,9 @@ Phases:
      one line for ``loop_cap=0``;
   9. ``torch.profiler`` traces of one T=14 sequence of each path (device
      time per kernel, B2's share, busy share) and of one tracker trip (its
-     time and its kernel launches);
+     time and its kernel launches); the host's time to issue one warm step
+     of the fused path beside its launches and device time, which says
+     whether the host or the card sets the pace of a stream of warm steps;
  10. the fused path with log and cycling handling on (T=3) against the
      same with them off, and the exact tier's sequence,
      ``solve_sequence_batched_native`` (T=3): every solve PROBLEM_SOLVED,
@@ -50,7 +58,9 @@ Phases:
 
 Prints one JSON line with the per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-when there is no CUDA device or any phase fails.
+when there is no CUDA device or any phase fails.  With phase names as
+arguments (``python3 chip_smoke.py panel fused``) only those phases run
+and no result is printed.
 """
 
 import json
@@ -66,8 +76,11 @@ N_VAR, DIMS, B, T_MAX = 100, (30, 30, 30, 30), 384, 14
 TS = (2, 14)
 REPS = 11  # timing rounds of the main path, as bench.py's repetitions
 TRACKED = dict(loop_cap=1, ns_iters=2, trip1_noext=True)  # bench.py:84-131
-# the test_01 shape: 60 simple bounds, the largest level wider than n
-SB_N, SB_DIMS, SB_B_PLAIN, SB_CAP, SB_T = 88, (60, 33, 3, 2, 97), 16, 12, 3
+# the test_01 shape: 60 simple bounds, the largest level wider than n; the
+# kernel is held against its plain version on SB_B_PLAIN instances (in
+# float32 a tenth of them may end in another working set, and with 16
+# instances that tenth was a single one)
+SB_N, SB_DIMS, SB_B_PLAIN, SB_CAP, SB_T = 88, (60, 33, 3, 2, 97), 64, 12, 3
 # the card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
 # memory rate, and the float32 rate outside the tensor cores
 PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
@@ -212,14 +225,19 @@ def check_panel(dev, report):
         ms = _cuda_ms(lambda: panel_factorize(*args, **kw), 20)
         plain_ms = _cuda_ms(lambda: panel_factorize_ref(*args, **kw), 3)
         print(f"[B1 {name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call (B={B})")
+        own_ms, _ = _own_device_time(f"[B1 {name}]", "panel_factorize_kernel",
+                                     lambda: panel_factorize(*args, **kw), 20)
         if dtype == torch.float32:  # the main path's dtype
             r = got[3].double().cpu().numpy()
             flops = float(_panel_flops(r, DIMS[0], np.full_like(r, N_VAR)).sum())
             bound_ms, bound_by = _bound(_nbytes(*args) + _nbytes(*got), flops)
             print(f"[B1 {name}] bound {bound_ms:.5f} ms by {bound_by} "
-                  f"({flops / 1e6:.2f} MFLOP, {(_nbytes(*args) + _nbytes(*got)) / 1e6:.2f} MB)")
-            report["panel_factorize"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                             bound_ms=bound_ms, bound_by=bound_by)
+                  f"({flops / 1e6:.2f} MFLOP, {(_nbytes(*args) + _nbytes(*got)) / 1e6:.2f} MB); "
+                  f"each instance is a chain of {int(got[3].max())} pivot steps, one after "
+                  f"another")
+            report["panel_factorize"].update(max_abs_err=err, ms=ms, own_ms=own_ms,
+                                             plain_ms=plain_ms, bound_ms=bound_ms,
+                                             bound_by=bound_by)
 
 
 def _state_args(A, s):
@@ -308,32 +326,107 @@ def _print_bound(label, args, kw, res, struct):
     nbytes = _nbytes(*args, kw["prio"], kw["elig"], *outs)
     flops = _active_set_flops(res, struct.lexlse_dims, N_VAR, struct.m)
     bound_ms, bound_by = _bound(nbytes, flops)
+    steps = int(res.ranks.sum(1).max())
     print(f"{label} bound {bound_ms:.5f} ms by {bound_by} ({flops / 1e6:.2f} MFLOP for "
-          f"{int(res.it.sum())} iterations, {nbytes / 1e6:.2f} MB)")
+          f"{int(res.it.sum())} iterations, {nbytes / 1e6:.2f} MB); the bound takes the whole "
+          f"card to stream or multiply, while the longest instance is a chain of "
+          f"{int(res.it.max())} iterations of up to {steps} pivot steps each, one after another")
     return bound_ms, bound_by
 
 
+def _own_device_time(label, kernel, fn, calls):
+    """A kernel's own device time per call, by CUDA events that the wrapper
+    records right around its launch (``_build.LAUNCH_EVENTS``), beside the
+    count and device time of everything else the wrapper launches, from a
+    torch.profiler trace of the same calls: the CUDA-event time of the whole
+    call cannot tell the kernel from the host's time to issue it.  ``kernel``
+    is a part of the kernel's name in csrc/.  Returns (own ms, other
+    launches per call)."""
+    from lexls_tpu_torch.ops import _build
+
+    fn()
+    torch.cuda.synchronize()
+    _build.LAUNCH_EVENTS = events = []
+    try:
+        for _ in range(calls):
+            torch.cuda.synchronize()  # an idle card: the events bracket the kernel alone
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        _build.LAUNCH_EVENTS = None
+    own = statistics.median(start.elapsed_time(end) for _, start, end in events)
+    rows, wall_ms = _profile(lambda: [fn() for _ in range(calls)])
+    others = sum(r[1] for r in rows if kernel not in r[2])
+    other_ms = sum(r[0] for r in rows if kernel not in r[2]) / 1e3
+    print(f"{label} the kernel's own device time {own:.4f} ms (median of {len(events)} launches, "
+          f"events around the launch); beside it the wrapper launches {others / calls:g} other "
+          f"kernels per call ({other_ms / calls:.4f} ms of device time; torch.profiler); profiled "
+          f"host wall {wall_ms / calls:.4f} ms per call")
+    return own, others / calls
+
+
 def _options_device_time(label, args, kws, calls=10):
-    """B2's own device time per call under each set of options, and beside
-    it the device time of everything else its wrapper launches (the copies
-    of the state, and of the log, the detector and the bounds when their
-    option is on), from a torch.profiler trace of ``calls`` calls: the
-    CUDA-event times of the wrapper cannot tell the two apart, nor either
-    from the host's time to issue the copies."""
+    """B2's own device time per call under each set of options, and what
+    else its wrapper launches (nothing, since the kernel reads the caller's
+    state and writes its own outputs)."""
     from lexls_tpu_torch.ops import fused_active_set
 
+    own = {}
     for what, kw in kws:
-        rows, wall_ms = _profile(lambda: [fused_active_set(*args, **kw) for _ in range(calls)])
-        total = sum(r[0] for r in rows) / 1e3
-        if total == 0:
-            print(f"{label} the profiler shows no device time: the kernel's own time under "
-                  f"the options not measured")
-            return
-        kern = sum(r[0] for r in rows if "fused_kernel" in r[2]) / 1e3  # csrc/fused.cu
-        others = sum(r[1] for r in rows if "fused_kernel" not in r[2])
-        print(f"{label} options {what}: device time per call, kernel {kern / calls:.4f} ms, "
-              f"the wrapper's {others // calls} other launches {(total - kern) / calls:.4f} ms; "
-              f"profiled host wall {wall_ms / calls:.4f} ms per call")
+        own[what], others = _own_device_time(f"{label} options {what}:", "fused_kernel",
+                                             lambda: fused_active_set(*args, **kw), calls)
+        if what == "off" and others > 2:
+            raise SystemExit(f"{label} the wrapper issues {others:g} launches beside the kernel")
+    return own
+
+
+def _time_layouts(label, args, kw, struct, reps):
+    """B2 with the LOD in shared memory and with the LOD in device memory
+    (the small vectors in shared memory either way), in turns; the rule of
+    ``fused_layout`` picks one by the bytes."""
+    from lexls_tpu_torch.ops import fused_active_set
+    from lexls_tpu_torch.ops.fused import fused_layout
+
+    A = args[0]
+    lay = fused_layout(struct.m, A.shape[2], len(struct.lexlse_dims), struct.d0,
+                       max(1, max(struct.lexlse_dims)), A.dtype)
+    if lay.nbytes_all_shared > 232448:
+        print(f"{label} the LOD cannot live in shared memory here ({lay.nbytes_all_shared} bytes)")
+        return
+    turns = [_cuda_ms(lambda f=f: fused_active_set(*args, lod_shared=f, **kw), reps)
+             for f in (True, False, False, True)]
+    print(f"{label} kernel ms per call with the LOD in shared / device / device / shared "
+          f"memory: {' / '.join(f'{t:.4f}' for t in turns)}; the rule takes "
+          f"{'shared' if lay.in_shared else 'device'} memory ({lay.nbytes_all_shared} bytes)")
+
+
+def print_layouts():
+    """The shared-memory bytes, the layout that the rule picks and the
+    resident blocks per SM (by the bytes, and as the card reports them for
+    the built kernel) of every shape this script runs, and of one shape
+    whose LOD does not fit."""
+    from lexls_tpu_torch.ops.fused import fused_layout, fused_occupancy
+    from lexls_tpu_torch.ops.panel_lqr import panel_layout, panel_occupancy
+
+    sb_general = SB_DIMS[1:]
+    for dtype in (torch.float32, torch.float64):
+        name = "f64" if dtype == torch.float64 else "f32"
+        shapes = (("bench", sum(DIMS), N_VAR, len(DIMS), 0, max(DIMS)),
+                  ("test_01", sum(SB_DIMS), SB_N, len(sb_general), SB_DIMS[0], max(sb_general)),
+                  ("n=160, m=200", 200, 160, 4, 0, 50))
+        for what, m, n, p, d0, dmax in shapes:
+            lay = fused_layout(m, n, p, d0, dmax, dtype)
+            print(f"[layout B2 {name} {what}] m={m} n={n} p={p} d0={d0}: LOD in "
+                  f"{'shared' if lay.in_shared else 'device'} memory (all shared would be "
+                  f"{lay.nbytes_all_shared} bytes), {lay.nbytes} bytes of shared memory a block, "
+                  f"row stride {lay.ld}; blocks per SM {lay.blocks_per_sm} by the bytes, "
+                  f"{fused_occupancy(lay, dtype)} as the card reports")
+        for what, dim, n in (("bench", DIMS[0], N_VAR), ("test_01", max(sb_general), SB_N)):
+            lay = panel_layout(dim, n, dtype)
+            print(f"[layout B1 {name} {what}] dim={dim} n={n}: block in "
+                  f"{'shared' if lay.in_shared else 'device'} memory, {lay.nbytes} bytes of "
+                  f"shared memory a block; blocks per SM {lay.blocks_per_sm} by the bytes, "
+                  f"{panel_occupancy(lay, dtype)} as the card reports")
 
 
 def check_fused(dev, report):
@@ -441,9 +534,17 @@ def check_fused(dev, report):
                   f"/ log and cycling on / off again: "
                   f"{' / '.join(f'{t:.4f}' for t in turns)}")
             if step == 1:
-                _options_device_time(label.split(' log')[0], args,
-                                     (("off", kw_off), ("log on", kw_log),
-                                      ("log and cycling on", kw_both), ("off again", kw_off)))
+                own = _options_device_time(label.split(' log')[0], args,
+                                           (("off", kw_off), ("log on", kw_log),
+                                            ("log and cycling on", kw_both),
+                                            ("off again", kw_off)))
+            else:
+                own = _options_device_time(label.split(' log')[0], args, (("off", kw_off),),
+                                           calls=3)
+            if dtype == torch.float32:
+                report["fused_active_set"]["own_ms_" + ("cold" if step == 0 else "warm")] = \
+                    own["off"]
+            _time_layouts(label.split(' log')[0], args, kw_off, struct, reps)
             if step == 1 and dtype == torch.float32:  # the main path's most frequent call
                 bound_ms, bound_by = _print_bound(label, args, kw, got, struct)
                 report["fused_active_set"].update(
@@ -839,6 +940,51 @@ def _profile(fn):
     return rows, wall_ms
 
 
+def measure_warm_step_host(A_seq, lb_seq, ub_seq, reg, struct, params, x, ct, steps=12):
+    """Whether the host or the card sets the pace of a warm step of the
+    fused path: warm steps 1..steps as the sequence loop runs them (each
+    from the recorded x and working set of the step before), the host's
+    time to issue them (``time.perf_counter()`` with no synchronise before
+    the second reading), the time until the card has finished them, and
+    the kernel launches and device time of one such step (torch.profiler)."""
+    from lexls_tpu_torch import solve_core_fused
+    from lexls_tpu_torch.sequence import _device_initial_activation
+
+    Bn, _, m, n = A_seq.shape
+    v0 = torch.zeros(Bn, m, dtype=A_seq.dtype, device=A_seq.device)
+
+    def warm_step(t):
+        A, lb, ub = (a[:, t].contiguous() for a in (A_seq, lb_seq, ub_seq))
+        c, s, ns = _device_initial_activation(A, lb, ub, ct[:, t - 1], struct)
+        return solve_core_fused(A, lb, ub, c, s, ns, x[:, t - 1].contiguous(), v0, reg,
+                                struct=struct, params=params, x_guess_specified=True,
+                                v0_specified=False)
+
+    def all_steps():
+        return [warm_step(t) for t in range(1, steps + 1)]
+
+    all_steps()
+    host, wall = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_steps()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) * 1e3 / steps)
+        wall.append((t2 - t0) * 1e3 / steps)
+    rows, _ = _profile(lambda: warm_step(1))
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    launches = sum(r[1] for r in rows)
+    h, w = statistics.median(host), statistics.median(wall)
+    print(f"[fused path, one warm step] host time to issue it {h:.4f} ms (median of 5 runs of "
+          f"{steps} steps, no synchronise; all {[round(v, 4) for v in host]}); until the card "
+          f"has finished it {w:.4f} ms; {launches} kernel launches and {dev_ms:.4f} ms of device "
+          f"time in one step (torch.profiler): the "
+          f"{'host' if h > dev_ms else 'card'} sets the pace")
+
+
 def profile_trip(A_seq, lb_seq, ub_seq, reg, struct, params):
     """One tracker trip in isolation, the first trip of warm step 1 as
     ``solve_core_tracked`` runs it with the bench's knobs: its time (CUDA
@@ -1000,6 +1146,7 @@ def run_main_paths(dev, report):
     print(f"[fused path] plain B2 in warm steps, T={lo} ms: {times_p[lo][0]:.4f}; "
           f"T={hi} ms: {times_p[hi][0]:.4f}; warm solves/s (1 round): {rates_p[0]:.4f}")
     profile_sequence("fused path", run)
+    measure_warm_step_host(A_seq, lb_seq, ub_seq, reg, struct, params, x, ct)
     profile_sequence("tracked path", run_tracked)
     profile_trip(A_seq, lb_seq, ub_seq, reg, struct, params)
 
@@ -1145,15 +1292,25 @@ def main():
                                  source="lexls_tpu_torch/csrc/fused.cu",
                                  replaces="lexls_tpu/ops/fused.py:966", library_ms=None),
     }
-    check_panel(dev, report)
-    check_fused(dev, report)
-    check_simple_bounds(dev)
-    check_tracked_simple_bounds(dev)
-    check_exact_tier(dev)
-    check_cycling_fixture(dev)
-    measure_test01_cycling(dev)
-    run_main_paths(dev, report)
-    run_new_paths(dev, report)
+    phases = {
+        "layouts": print_layouts,
+        "panel": lambda: check_panel(dev, report),
+        "fused": lambda: check_fused(dev, report),
+        "simple_bounds": lambda: check_simple_bounds(dev),
+        "tracked_simple_bounds": lambda: check_tracked_simple_bounds(dev),
+        "exact_tier": lambda: check_exact_tier(dev),
+        "cycling_fixture": lambda: check_cycling_fixture(dev),
+        "test01_cycling": lambda: measure_test01_cycling(dev),
+        "main_paths": lambda: run_main_paths(dev, report),
+        "new_paths": lambda: run_new_paths(dev, report),
+    }
+    # with phase names as arguments, only those run and no result is printed
+    # (for work on one kernel); with none, as the check runs it, all do
+    only = sys.argv[1:]
+    for phase in only or phases:
+        phases[phase]()
+    if only:
+        return 0
 
     print(json.dumps({"kernels": list(report.values())}))
     print(smi)

@@ -7,23 +7,56 @@
 // (per-level R in pivot order, positions, ranks), the working-set log and
 // cycling handling.
 //
-// Design on the H100: one thread block (128 threads) per instance loops
-// over active-set iterations until its own instance terminates; the TPU
-// kernel ran a tile of instances in lock step and froze finished ones by
-// predication, so it waited for the tile's slowest instance (and needed
-// compaction to recover).  Per-instance state lives in device memory
-// allocated by the wrapper (the masked LOD, taus, column norms, positions,
-// multipliers, L rows) and stays in L1/L2 while the block works on it.
-// An iteration is a chain of small dependent stages (about 120 pivot steps
-// at the bench shape, each ending in block reductions), so the kernel is
-// bound by barrier and reduction latency, not by bytes or FLOPs; many
-// independent blocks per SM hide that latency.  Reflection vectors for
-// the λ replay are read back from the pivot columns of the LOD (where the
-// panel step leaves their essential parts) instead of being stored twice.
-// Nothing after the factorization writes the LOD, so the factor export
-// reads it once, after the instance's last iteration of the call, instead
-// of on every iteration as the TPU tile did; a block whose instance is not
-// alive on entry (parked by the caller) writes the empty export and exits.
+// What bounds it on the H100: one thread block (128 threads) per instance
+// loops over active-set iterations until its own instance terminates (the
+// TPU kernel ran a tile of instances in lock step and waited for the
+// tile's slowest), and every block of a batch is resident at once, so a
+// call takes as long as its longest instance.  An iteration is a chain of
+// small dependent stages (about 120 pivot steps at the bench shape, then
+// the Gauss, substitution and multiplier stages) run by the four warps of
+// one block, three blocks to an SM: the kernel is bound by the latency of
+// that chain and by the instructions its few warps can issue in order,
+// neither by bytes nor by operations.  The design therefore shortens the
+// chain's links and leaves nothing to a single warp that four can do:
+//  * the instance's whole state lives in shared memory for the length of
+//    the call: the masked subproblem (LOD), taus, column norms, the
+//    permutation, multipliers, and x, v, Ax, the step, the working set and
+//    the bounds.  The kernel reads the caller's state once at entry and
+//    writes its own outputs once at exit; no input is written.  The
+//    wrapper computes the layout (ops/fused.py::fused_layout) and hands the
+//    kernel the byte offsets.  The LOD's row stride is odd, so a walk along
+//    a row and a gather down a column both touch 32 different banks.  Where
+//    the state does not fit the 227 KB a thread block may use, the LOD
+//    alone stays in device memory (`work`): the kernel is compiled for
+//    either place, so that the compiler knows the address space of every
+//    access (a pointer that may be either costs every load twice);
+//  * A is read from device memory (it stays in L2) when an iteration builds
+//    the LOD, by asynchronous copies of the active rows that are all in
+//    flight at once, and when it forms A dx, four rows to a warp at a time;
+//  * a pivot step is one block-wide barrier on shared memory
+//    (panel_step.cuh);
+//  * the factorization runs in a function of its own (not inlined), so that
+//    its register-tiled stages do not compete for registers with the state
+//    the rest of the iteration keeps live;
+//  * the Gauss elimination of the rows below a level writes each
+//    multiplier straight into its pivot column (no separate L buffer):
+//    first one thread per row sweeps the pivot columns with the row's
+//    values in registers and R read as broadcasts, then every thread takes
+//    a trailing column with its R values in registers and a share of the
+//    rows, and reads the multipliers as broadcasts: one shared-memory load
+//    for every multiply-add.  A row that is not in the working set is zero
+//    and is skipped;
+//  * the backward substitution keeps a level's vector in the lanes of one
+//    warp and passes each solved entry by shuffle; the λ replay keeps a
+//    level's multipliers in the lanes likewise;
+//  * the ratio test and the removal selection are one block reduction
+//    over (value, key) pairs each.
+// Reflection vectors for the λ replay are read back from the pivot columns
+// of the LOD (where the panel step leaves their essential parts).  Nothing
+// after the factorization writes the LOD, so the factor export reads it
+// once, after the instance's last iteration of the call; a block whose
+// instance is not alive on entry (parked by the caller) copies its state
+// through, writes the empty export and exits.
 // Simple bounds: the first d0 rows of A are unit rows whose active ones fix
 // their variables; the LOD holds the general rows only, with the fixed
 // columns zeroed and their values folded into the rhs by plain indexing
@@ -32,81 +65,81 @@
 // Working-set log and cycling handling (run-time options, so that one
 // compiled kernel serves every caller): what an iteration changed (row,
 // type, step length or multiplier, total rank) is known identically to
-// every thread, so thread 0 appends the entry by plain indexing at log_len
-// and relaxes the one bound of a detected cycle in place; the TPU tile
-// wrote both through one-hot masks over the whole ring and the whole row.
-// The log length and the detector's four integers are instance scalars
-// like the counters; lb/ub are per-instance state under cycling (the
-// wrapper hands the kernel its own copy), re-read by every iteration.
+// every thread, so thread 0 appends the entry to the output log by plain
+// indexing at log_len (the block copies the incoming log there at entry)
+// and relaxes the one bound of a detected cycle in shared memory.  The log
+// length and the detector's four integers are instance scalars like the
+// counters.
 //
 // Stages per iteration (fused.py line numbers): formLexLSE masking
-// (278-327, fixed variables 291-319), per-level panel loop (335-411), Gauss elimination of the
-// lower rows with L stored in the pivot columns (433-455), backward
-// substitution (479-498, fixed values 497-498), step (511-517), ratio test (150-174), λ sweep by
-// Householder replay j = K-1..0 (532-583), removal selection with both
-// strategies and CORRECT_SIGN marking (585-648, multipliers of fixed
-// variables 598-609), working-set update and counters (650-677), pause at
-// iter_cap (262-268), factor export (457-475), working-set log (679-704),
-// cycling handling (706-746).
+// (278-327, fixed variables 291-319), per-level panel loop (335-411), Gauss
+// elimination of the lower rows with L stored in the pivot columns
+// (433-455), backward substitution (479-498, fixed values 497-498), step
+// (511-517), ratio test (150-174), λ sweep by Householder replay
+// j = K-1..0 (532-583), removal selection with both strategies and
+// CORRECT_SIGN marking (585-648, multipliers of fixed variables 598-609),
+// working-set update and counters (650-677), pause at iter_cap (262-268),
+// factor export (457-475), working-set log (679-704), cycling handling
+// (706-746).
 #include <cuda_runtime.h>
 
 #include <cmath>
 
 #include "panel_step.cuh"
+#include "shared_config.cuh"
 
 namespace lexls {
 
-constexpr int kFusedThreads = 128;
+constexpr int kFusedThreads = kStepWarps * kWarp;  // 128
+// Pivot columns of a level that the Gauss stages hold in registers at a time.
+constexpr int kChunk = 32;
+// The same for the forward sweep that computes the multipliers.
+constexpr int kChunkL = 16;
+// Rows that a warp works on together in the matrix-vector stages.
+constexpr int kRows = 4;
 constexpr int kInactive = 0, kActiveLb = 1, kActiveUb = 2, kActiveEq = 3, kCorrectSign = 4;
 constexpr int kUnknown = -1, kSolved = 0, kSolvedCycling = 1;
 constexpr int kOpUndefined = 0, kOpAdd = 1, kOpRemove = 2;
 
+// The entry's argument arrays, in the order of ops/fused.py's FUSED_INPUTS,
+// FUSED_OUTPUTS, FUSED_INTS, FUSED_REALS and FUSED_REGIONS.
+enum FusedInput {
+  kInA, kInLb, kInUb, kInCt, kInSt, kInNs, kInX, kInV, kInAx, kInNf,
+  kInIt0,                                      // null: zeros
+  kInLobj, kInLctr, kInLtyp, kInLval, kInLrank, kInLcyc, kInLlen, kInLovf,  // null: empty log
+  kInCcnt, kInCop, kInCrow, kInCtyp,           // null: the initial detector
+  kInLvl, kInPrio, kInElig, kInVidx,
+  kFusedInputs
+};
+enum FusedOutput {
+  kOutX, kOutV, kOutAx, kOutDx, kOutDv, kOutAdx, kOutCt, kOutSt, kOutNs, kOutIt, kOutNa,
+  kOutNd, kOutNf, kOutStatus, kOutRpad, kOutPosf, kOutRanks,
+  kOutLb, kOutUb,                              // null unless cycling handling is on
+  kOutLobj, kOutLctr, kOutLtyp, kOutLval, kOutLrank, kOutLcyc, kOutLlen, kOutLovf,
+  kOutCcnt, kOutCop, kOutCrow, kOutCtyp,
+  kOutWork,                                    // the LOD when it is not in shared memory
+  kFusedOutputs
+};
+enum FusedInt {
+  kIntB, kIntM, kIntN, kIntP, kIntD0, kIntKmax, kIntLd, kIntLodShared, kIntSmemBytes,
+  kIntMaxFact, kIntDeactFirst, kIntIterCap, kIntLogCap, kIntCycling, kIntCycMax, kIntQuery,
+  kFusedInts
+};
+enum FusedReal { kRealTolLd, kRealTolFeas, kRealTolWrong, kRealTolCorrect, kRealCycRelax,
+                 kFusedReals };
+enum FusedRegion {
+  kRegLod, kRegHh, kRegCn, kRegU, kRegXdx, kRegLam, kRegRhsAll, kRegFval, kRegX, kRegV,
+  kRegAx, kRegDv, kRegAdx, kRegLb, kRegUb, kRegRed, kRegStep,
+  kRegPos, kRegColAt, kRegSense, kRegCt, kRegSt, kRegLvlFc, kRegLvlRank, kRegFmask,
+  kFusedRegions
+};
+
 template <typename T>
 struct FusedArgs {
-  const T* A;
-  T* lb;  // written only by cycling handling
-  T* ub;
-  int* ct;
-  int* st;
-  int* ns;
-  T* x;
-  T* v;
-  T* Ax;
-  int* nf;
-  const int* it0;
-  T* dx;
-  T* dv;
-  T* Adx;
-  int* it;
-  int* na;
-  int* nd;
-  int* status;
-  T* rpad;          // (p, kmax, kmax) exported R per level, pivot order
-  int* posf;        // (n) exported positions
-  int* ranks;       // (p) exported ranks
-  const int* lvl;   // (2, p): general level sizes, then first general rows
-  const int* prio;  // (p, m) λ-sweep visit priority
-  const int* elig;  // (p, m) λ-sweep eligibility
-  const int* vidx;  // (d0) variable of each bound row
-  T* work;
-  int* iwork;
-  // working-set log, (log_cap) per instance: objective, row within it,
-  // type, value, total rank, cycling flag; then its length and overflow flag
-  int* lobj;
-  int* lctr;
-  int* ltyp;
-  T* lval;
-  int* lrank;
-  int* lcyc;
-  int* llen;
-  int* lovf;
-  // cycling detector: counter, previous operation, row and type
-  int* ccnt;
-  int* cop;
-  int* crow;
-  int* ctypv;
-  int m, n, p, d0, kmax, dmax;
-  size_t wstride, iwstride;
+  const void* in[kFusedInputs];
+  void* out[kFusedOutputs];
+  int off[kFusedRegions];
+  int m, n, p, d0, kmax, ld;
   T tol_ld, tol_feas, tol_wrong, tol_correct;
   int max_fact, deact_first, iter_cap;
   int log_cap, cycling, cyc_max;
@@ -122,63 +155,276 @@ __device__ __forceinline__ T rhs_of(int t, T lb, T ub) {
   return (t == kActiveUb || t == kActiveEq) ? ub : (t == kActiveLb ? lb : T(0));
 }
 
+// Instance b's part of a per-instance input or output array of `count`
+// elements (null stays null).
+template <typename E>
+__device__ __forceinline__ E* slice(const void* base, int b, int count) {
+  return base ? (E*)base + (size_t)b * count : nullptr;
+}
+
+// The block's dynamic shared memory; ops/fused.py::fused_layout places the
+// regions.
+extern __shared__ __align__(16) unsigned char smem[];
+
+// What the factorization of one iteration needs, with the shared-memory
+// regions as byte offsets so that the compiler still knows their address
+// space inside a function that is not inlined.
 template <typename T>
-__global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
+struct FactorCtx {
+  T* lod_global;    // the LOD when it is not in shared memory
+  const int* dims;  // (2, p) level sizes, then first rows
+  int lod, hh, cn, u, pos, col_at, step, ct, lvl_fc, lvl_rank;
+  int ld, n, p, mg, d0;
+  T tol;
+};
+
+// Factorize the LOD level by level: the panel pivot loop, then the Gauss
+// elimination of the rows below.  Returns the total rank.  Kept out of line:
+// its register-tiled stages then do not compete for registers with the
+// state that the rest of the iteration keeps live.
+template <typename T, bool kLodShared>
+__device__ __noinline__ int factorize(const FactorCtx<T> x) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int n = x.n, p = x.p, ld = x.ld, mg = x.mg;
+  T* lod = kLodShared ? (T*)(smem + x.lod) : x.lod_global;
+  int* col_at = (int*)(smem + x.col_at);
+  const int* ct = (const int*)(smem + x.ct) + x.d0;  // types of the general rows
+  int* lvl_fc = (int*)(smem + x.lvl_fc);
+  int* lvl_rank = (int*)(smem + x.lvl_rank);
+  const int* dims = x.dims;
+  const int* offs = dims + p;
+
+  int ci = 0;
+  for (int k = 0; k < p; ++k) {
+    const int dim = dims[k], fr = offs[k];
+    const int fc = ci;
+    if (dim > 0) {
+      Panel<T> P;
+      P.blk = lod + (size_t)fr * ld;
+      P.ld = ld;
+      P.dim = dim;
+      P.n = n;
+      P.cn = (T*)(smem + x.cn);
+      P.pos = (int*)(smem + x.pos);
+      P.col_at = col_at;
+      P.rank_row = nullptr;
+      P.hh = (T*)(smem + x.hh) + fr;
+      P.den = (T*)(smem + x.u);  // free until the backward substitution
+      P.sc = (StepScratch<T>*)(smem + x.step);
+      P.fr = fr;
+      P.tol = x.tol;
+      StepCarry carry;
+      panel_init_norms(P, ci, carry);
+      __syncthreads();
+      for (int counter = 0; counter < dim; ++counter)
+        if (!panel_step<T, true>(P, counter, ci, carry)) break;
+      panel_finish(P, fc, ci - fc);
+    }
+    // every thread holds fc and the rank; the copies are for later stages.
+    // The pivot column of slot j of this level is col_at[fc + j]: positions
+    // below ci never move again
+    const int end = ci, rank = ci - fc;
+    if (tid == 0) {
+      lvl_fc[k] = fc;
+      lvl_rank[k] = rank;
+    }
+    if (k == p - 1 || rank == 0) continue;
+
+    // Gauss elimination of the rows below: L R = B by a forward column
+    // sweep, one thread per row with the row's pivot-column values in
+    // registers (chunks of kChunk columns); each multiplier goes straight
+    // into its pivot column.  R(i, j) = Rrow[i * ld + cl[j]].  An inactive
+    // row is zero and stays zero: it is skipped here and below
+    const T* Rrow = lod + (size_t)fr * ld;
+    const int* cl = col_at + fc;
+    const int rb = fr + dim;  // first row below the level
+    for (int r = rb + tid; r < mg; r += nt) {
+      if (!is_active(ct[r])) continue;
+      T* row = lod + (size_t)r * ld;
+      for (int cb = 0; cb < rank; cb += kChunkL) {
+        const int nc = rank - cb < kChunkL ? rank - cb : kChunkL;
+        T w[kChunkL];
+        int cc[kChunkL];  // this chunk's pivot columns
+#pragma unroll
+        for (int j = 0; j < kChunkL; ++j) {
+          cc[j] = cl[cb + (j < nc ? j : 0)];
+          w[j] = row[cc[j]];
+        }
+        // the multipliers of the chunks before this one
+        for (int i = 0; i < cb; ++i) {
+          const T li = row[cl[i]];
+          const T* Ri = Rrow + i * ld;
+#pragma unroll
+          for (int j = 0; j < kChunkL; ++j) w[j] -= li * Ri[cc[j]];
+        }
+#pragma unroll
+        for (int j = 0; j < kChunkL; ++j)
+          if (j < nc) {
+            const T* Rj = Rrow + (cb + j) * ld;
+            const T rjj = Rj[cc[j]];
+            w[j] = w[j] / (rjj != T(0) ? rjj : T(1));
+#pragma unroll
+            for (int j2 = j + 1; j2 < kChunkL; ++j2) w[j2] -= w[j] * Rj[cc[j2]];
+          }
+#pragma unroll
+        for (int j = 0; j < kChunkL; ++j)
+          if (j < nc) row[cc[j]] = w[j];
+      }
+    }
+    __syncthreads();
+    // trailing update below -= L [R T | rhs]: a thread takes one trailing
+    // column (position >= end, or the rhs) with its R values in registers,
+    // and every `groups`-th row below, in about four items a thread so
+    // that the threads end together; the multipliers are read as broadcasts
+    const int ncols = n - end + 1;
+    int groups = (4 * nt) / ncols;
+    if (groups < 1) groups = 1;
+    for (int item = tid; item < ncols * groups; item += nt) {
+      const int g = item / ncols, jc = item - g * ncols;
+      const int c = jc < n - end ? col_at[end + jc] : n;
+      for (int cb = 0; cb < rank; cb += kChunk) {
+        const int nc = rank - cb < kChunk ? rank - cb : kChunk;
+        T Rc[kChunk];
+        int cc[kChunk];  // this chunk's pivot columns
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          cc[j] = cl[cb + (j < nc ? j : 0)];
+          Rc[j] = j < nc ? Rrow[(cb + j) * ld + c] : T(0);
+        }
+        for (int r = rb + g; r < mg; r += groups) {
+          if (!is_active(ct[r])) continue;
+          T* row = lod + (size_t)r * ld;
+          T s = 0;
+#pragma unroll
+          for (int j = 0; j < kChunk; ++j) s += row[cc[j]] * Rc[j];
+          row[c] -= s;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  __syncthreads();  // lvl_fc, lvl_rank and the last level's writes
+  return ci;
+}
+
+// 4- or 8-byte asynchronous copy from device to shared memory.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst_shared, const T* src) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(dst_shared);
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst), "l"(src) : "memory");
+}
+
+// kLodShared: the LOD lives in shared memory (the compiler then knows the
+// address space of every access to it), else in `work`.
+template <typename T, bool kLodShared>
+__global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 3)
+    fused_kernel(FusedArgs<T> a) {
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid % kWarp, wid = tid / kWarp, nw = nt / kWarp;
-  const int m = a.m, n = a.n, p = a.p, ld = n + 1, kmax = a.kmax;
+  const int m = a.m, n = a.n, p = a.p, ld = a.ld, kmax = a.kmax;
   const int d0 = a.d0, mg = m - d0;  // rows < d0 are simple bounds
   const T inf = T(INFINITY);
 
-  const T* A = a.A + (size_t)b * m * n;
-  T* lb = a.lb + (size_t)b * m;
-  T* ub = a.ub + (size_t)b * m;
-  int* ct = a.ct + (size_t)b * m;
-  int* st = a.st + (size_t)b * m;
-  T* x = a.x + (size_t)b * n;
-  T* v = a.v + (size_t)b * m;
-  T* Ax = a.Ax + (size_t)b * m;
-  T* dx = a.dx + (size_t)b * n;
-  T* dv = a.dv + (size_t)b * m;
-  T* Adx = a.Adx + (size_t)b * m;
+  const T* A = slice<const T>(a.in[kInA], b, m * n);
+  const T* Ag = A + (size_t)d0 * n;  // general rows of A
+  const int* dims = (const int*)a.in[kInLvl];
+  const int* offs = dims + p;
+  const int* prio = (const int*)a.in[kInPrio];
+  const int* elig = (const int*)a.in[kInElig];
+  const int* vidx = (const int*)a.in[kInVidx];
 
-  const T* Ag = A + (size_t)d0 * n;          // general rows of A
+  // (mg, ld) masked subproblem: shared memory, or this instance's part of `work`
+  T* lod = kLodShared ? (T*)(smem + a.off[kRegLod])
+                      : (T*)a.out[kOutWork] + (size_t)b * mg * ld;
+  T* hh = (T*)(smem + a.off[kRegHh]);          // (mg) taus
+  T* cn = (T*)(smem + a.off[kRegCn]);          // (n) column norms
+  T* u = (T*)(smem + a.off[kRegU]);            // (dmax) step denominators, then backsub's vector
+  T* xdx = (T*)(smem + a.off[kRegXdx]);        // (n) basic solution, then the step dx
+  T* lam = (T*)(smem + a.off[kRegLam]);        // (p, m) multipliers, all rows
+  T* rhs_all = (T*)(smem + a.off[kRegRhsAll]); // (p-1, n) λ back-propagation of objectives 1..
+  T* fval = (T*)(smem + a.off[kRegFval]);      // (n) values of the fixed variables (d0 > 0)
+  T* x = (T*)(smem + a.off[kRegX]);            // (n)
+  T* v = (T*)(smem + a.off[kRegV]);            // (m)
+  T* Ax = (T*)(smem + a.off[kRegAx]);          // (m)
+  T* dv = (T*)(smem + a.off[kRegDv]);          // (m)
+  T* Adx = (T*)(smem + a.off[kRegAdx]);        // (m)
+  T* lb = (T*)(smem + a.off[kRegLb]);          // (m)
+  T* ub = (T*)(smem + a.off[kRegUb]);          // (m)
+  void* red = smem + a.off[kRegRed];           // block_min_pair's scratch
+  StepScratch<T>* sc = (StepScratch<T>*)(smem + a.off[kRegStep]);
+  int* pos = (int*)(smem + a.off[kRegPos]);        // (n) column -> position
+  int* col_at = (int*)(smem + a.off[kRegColAt]);   // (n) position -> column
+  int* sense = (int*)(smem + a.off[kRegSense]);    // (m) types with CORRECT_SIGN marks
+  int* ct = (int*)(smem + a.off[kRegCt]);          // (m) working set
+  int* st = (int*)(smem + a.off[kRegSt]);          // (m) stamps
+  int* lvl_fc = (int*)(smem + a.off[kRegLvlFc]);   // (p) first position of each level
+  int* lvl_rank = (int*)(smem + a.off[kRegLvlRank]);  // (p) rank of each level
+  int* fmask = (int*)(smem + a.off[kRegFmask]);    // (n) 1 where the variable is fixed (d0 > 0)
 
-  T* lod = a.work + (size_t)b * a.wstride;  // (mg, n+1) masked subproblem
-  T* hh = lod + (size_t)mg * ld;            // (mg) taus
-  T* cn = hh + mg;                          // (n) column norms
-  T* u = cn + n;                            // (dmax) reflection / backsub vector
-  T* xvar = u + a.dmax;                     // (n) basic solution
-  T* lam = xvar + n;                        // (p, m) multipliers, all rows
-  T* rhs_all = lam + (size_t)p * m;         // (p, n) λ back-propagation
-  T* Lbuf = rhs_all + (size_t)p * n;        // (mg, kmax) Gauss multipliers per row
-  T* fval = Lbuf + (size_t)mg * kmax;       // (n) values of the fixed variables
-  int* pos = a.iwork + (size_t)b * a.iwstride;  // (n) column -> position
-  int* colat = pos + n;                     // (p, kmax) pivot column per level slot
-  int* sense = colat + p * kmax;            // (m) types with CORRECT_SIGN marks
-  int* wrong = sense + m;                   // (m) wrong-sign flags of one objective
-  int* lvl_fc = wrong + m;                  // (p) first position of each level
-  int* lvl_rank = lvl_fc + p;               // (p) rank of each level
-  int* fmask = lvl_rank + p;                // (n) 1 where the variable is fixed
-  const int* dims = a.lvl;
-  const int* offs = a.lvl + p;
+  // ---- entry: the caller's state into shared memory
+  {
+    const T* gx = slice<const T>(a.in[kInX], b, n);
+    const T* gv = slice<const T>(a.in[kInV], b, m);
+    const T* gAx = slice<const T>(a.in[kInAx], b, m);
+    const T* glb = slice<const T>(a.in[kInLb], b, m);
+    const T* gub = slice<const T>(a.in[kInUb], b, m);
+    const int* gct = slice<const int>(a.in[kInCt], b, m);
+    const int* gst = slice<const int>(a.in[kInSt], b, m);
+    for (int c = tid; c < n; c += nt) {
+      x[c] = gx[c];
+      xdx[c] = T(0);
+    }
+    for (int i = tid; i < m; i += nt) {
+      v[i] = gv[i];
+      Ax[i] = gAx[i];
+      lb[i] = glb[i];
+      ub[i] = gub[i];
+      ct[i] = gct[i];
+      st[i] = gst[i];
+      dv[i] = Adx[i] = T(0);
+    }
+  }
+  int* lobj = slice<int>(a.out[kOutLobj], b, a.log_cap);
+  int* lctr = slice<int>(a.out[kOutLctr], b, a.log_cap);
+  int* ltyp = slice<int>(a.out[kOutLtyp], b, a.log_cap);
+  T* lval = slice<T>(a.out[kOutLval], b, a.log_cap);
+  int* lrank = slice<int>(a.out[kOutLrank], b, a.log_cap);
+  int* lcyc = slice<int>(a.out[kOutLcyc], b, a.log_cap);
+  if (a.log_cap > 0) {
+    // the incoming log (or an empty one) into the output log
+    const int* iobj = slice<const int>(a.in[kInLobj], b, a.log_cap);
+    const int* ictr = slice<const int>(a.in[kInLctr], b, a.log_cap);
+    const int* ityp = slice<const int>(a.in[kInLtyp], b, a.log_cap);
+    const T* ival = slice<const T>(a.in[kInLval], b, a.log_cap);
+    const int* irank = slice<const int>(a.in[kInLrank], b, a.log_cap);
+    const int* icyc = slice<const int>(a.in[kInLcyc], b, a.log_cap);
+    for (int e = tid; e < a.log_cap; e += nt) {
+      lobj[e] = iobj ? iobj[e] : 0;
+      lctr[e] = ictr ? ictr[e] : 0;
+      ltyp[e] = ityp ? ityp[e] : 0;
+      lval[e] = ival ? ival[e] : T(0);
+      lrank[e] = irank ? irank[e] : 0;
+      lcyc[e] = icyc ? icyc[e] : 0;
+    }
+  }
 
   // instance scalars, held identically by every thread
-  const int it0 = a.it0[b];
-  int ns = a.ns[b], nf = a.nf[b], it = it0, na = 0, nd = 0, status = kUnknown;
+  const int it0 = a.in[kInIt0] ? ((const int*)a.in[kInIt0])[b] : 0;
+  int ns = ((const int*)a.in[kInNs])[b], nf = ((const int*)a.in[kInNf])[b];
+  int it = it0, na = 0, nd = 0, status = kUnknown;
   int llen = 0, lovf = 0, ccnt = 0, cop = kOpUndefined, crow = -1, ctypv = -1;
-  if (a.log_cap > 0) {
-    llen = a.llen[b];
-    lovf = a.lovf[b];
+  if (a.in[kInLlen]) llen = ((const int*)a.in[kInLlen])[b];
+  if (a.in[kInLovf]) lovf = ((const int*)a.in[kInLovf])[b];
+  if (a.in[kInCcnt]) {
+    ccnt = ((const int*)a.in[kInCcnt])[b];
+    cop = ((const int*)a.in[kInCop])[b];
+    crow = ((const int*)a.in[kInCrow])[b];
+    ctypv = ((const int*)a.in[kInCtyp])[b];
   }
-  if (a.cycling) {
-    ccnt = a.ccnt[b];
-    cop = a.cop[b];
-    crow = a.crow[b];
-    ctypv = a.ctypv[b];
-  }
-  for (int c = tid; c < n; c += nt) dx[c] = T(0);
-  for (int i = tid; i < m; i += nt) dv[i] = Adx[i] = T(0);
+  __syncthreads();
 
   // alive: not terminated, within the factorization budget, and (with
   // iter_cap) not yet paused; a paused instance keeps status UNKNOWN
@@ -195,181 +441,188 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
       for (int r = tid; r < d0; r += nt) {
         const int t = ct[r];
         if (is_active(t)) {
-          fmask[a.vidx[r]] = 1;
-          fval[a.vidx[r]] = rhs_of(t, lb[r], ub[r]);
+          fmask[vidx[r]] = 1;
+          fval[vidx[r]] = rhs_of(t, lb[r], ub[r]);
         }
       }
       __syncthreads();
     }
-    for (int idx = tid; idx < mg * ld; idx += nt) {
-      const int i = idx / ld, c = idx - i * ld;
+    // one warp per general row, lanes along the row: an inactive row is
+    // zero, an active one is copied from A (asynchronously, every row's
+    // copies in flight at once, when the LOD is in shared memory)
+    for (int i = wid; i < mg; i += nw) {
       const int t = ct[d0 + i];
-      T val = T(0);
-      if (is_active(t)) {
-        if (c < n) val = (d0 > 0 && fmask[c]) ? T(0) : Ag[(size_t)i * n + c];
-        else val = rhs_of(t, lb[d0 + i], ub[d0 + i]);
+      const bool act = is_active(t);
+      const T* Ai = Ag + (size_t)i * n;
+      T* row = lod + (size_t)i * ld;
+      for (int c = lane; c < n; c += kWarp) {
+        if (!act) row[c] = T(0);
+        else if (kLodShared) copy_async(row + c, Ai + c);
+        else row[c] = Ai[c];
       }
-      lod[idx] = val;
+      if (d0 == 0 && lane == 0) row[n] = act ? rhs_of(t, lb[i], ub[i]) : T(0);
     }
-    for (int c = tid; c < n; c += nt) pos[c] = c;
+    for (int c = tid; c < n; c += nt) pos[c] = col_at[c] = c;
     for (int i = tid; i < mg; i += nt) hh[i] = T(0);
-    __syncthreads();
+    if (kLodShared) asm volatile("cp.async.wait_all;" ::: "memory");
     if (d0 > 0) {
-      // rhs -= A_g fixed_val, one warp per active general row
+      // fixed variables leave their columns (zeroed) for the rhs:
+      // rhs = bound - A_g fixed_val.  Each warp finishes the rows it copied
+      __syncwarp();
       for (int i = wid; i < mg; i += nw) {
-        if (!is_active(ct[d0 + i])) continue;
+        const int t = ct[d0 + i];
+        const bool act = is_active(t);
+        T* row = lod + (size_t)i * ld;
         T s = 0;
-        for (int c = lane; c < n; c += kWarp) s += Ag[(size_t)i * n + c] * fval[c];
-        s = warp_sum(s);
-        if (lane == 0) lod[(size_t)i * ld + n] -= s;
+        if (act) {
+          for (int c = lane; c < n; c += kWarp)
+            if (fmask[c]) {
+              s += row[c] * fval[c];
+              row[c] = T(0);
+            }
+          s = warp_sum(s);
+        }
+        if (lane == 0) row[n] = act ? rhs_of(t, lb[d0 + i], ub[d0 + i]) - s : T(0);
       }
-      __syncthreads();
     }
+    __syncthreads();
 
     // ---- factorize level by level
-    int ci = 0;
-    for (int k = 0; k < p; ++k) {
-      const int dim = dims[k], fr = offs[k];
-      const int fc = ci;
-      if (dim > 0) {
-        Panel<T> P;
-        P.blk = lod + (size_t)fr * ld;
-        P.ld = ld;
-        P.dim = dim;
-        P.n = n;
-        P.cn = cn;
-        P.pos = pos;
-        P.col_at = nullptr;
-        P.rank_row = nullptr;
-        P.hh = hh + fr;
-        P.u = u;
-        P.fr = fr;
-        P.tol = a.tol_ld;
-        panel_init_norms(P);
-        __syncthreads();
-        for (int counter = 0; counter < dim; ++counter)
-          if (!panel_step<T, true>(P, counter, ci)) break;
-      }
-      const int end = ci, rank = ci - fc;
-      int* cl = colat + k * kmax;
-      for (int c = tid; c < n; c += nt) {
-        const int q = pos[c];
-        if (q >= fc && q < end) cl[q - fc] = c;
-      }
-      if (tid == 0) {
-        lvl_fc[k] = fc;
-        lvl_rank[k] = rank;
-      }
-      __syncthreads();
-      if (k == p - 1 || rank == 0) continue;
-
-      // Gauss elimination of the rows below: L R = B by a forward column
-      // sweep, one thread per row
-      const T* Rrow = lod + (size_t)fr * ld;  // R(i, j) = Rrow[i * ld + cl[j]]
-      for (int r = fr + dim + tid; r < mg; r += nt) {
-        T* Lr = Lbuf + (size_t)r * kmax;
-        for (int j = 0; j < rank; ++j) {
-          const int cj = cl[j];
-          T wj = lod[(size_t)r * ld + cj];
-          for (int i = 0; i < j; ++i) wj -= Lr[i] * Rrow[i * ld + cj];
-          const T rjj = Rrow[j * ld + cj];
-          Lr[j] = wj / (rjj != T(0) ? rjj : T(1));
-        }
-      }
-      __syncthreads();
-      // trailing update below - L [R T | rhs], and L into the pivot columns
-      for (int r = fr + dim; r < mg; ++r) {
-        const T* Lr = Lbuf + (size_t)r * kmax;
-        for (int c = tid; c <= n; c += nt) {
-          if (c < n) {
-            const int q = pos[c];
-            if (q < fc) continue;
-            if (q < end) {
-              lod[(size_t)r * ld + c] = Lr[q - fc];
-              continue;
-            }
-          }
-          T s = 0;
-          for (int j = 0; j < rank; ++j) s += Lr[j] * Rrow[j * ld + c];
-          lod[(size_t)r * ld + c] -= s;
-        }
-      }
-      __syncthreads();
-    }
-
-    const int total_rank = ci;  // positions consumed = sum of the level ranks
+    FactorCtx<T> fx;
+    fx.lod_global = kLodShared ? nullptr : lod;
+    fx.dims = dims;
+    fx.lod = a.off[kRegLod];
+    fx.hh = a.off[kRegHh];
+    fx.cn = a.off[kRegCn];
+    fx.u = a.off[kRegU];
+    fx.pos = a.off[kRegPos];
+    fx.col_at = a.off[kRegColAt];
+    fx.step = a.off[kRegStep];
+    fx.ct = a.off[kRegCt];
+    fx.lvl_fc = a.off[kRegLvlFc];
+    fx.lvl_rank = a.off[kRegLvlRank];
+    fx.ld = ld;
+    fx.n = n;
+    fx.p = p;
+    fx.mg = mg;
+    fx.d0 = d0;
+    fx.tol = a.tol_ld;
+    const int total_rank = factorize<T, kLodShared>(fx);  // sum of the level ranks
 
     // ---- basic solve: backward substitution per level, free vars = 0
-    for (int c = tid; c < n; c += nt) xvar[c] = T(0);
+    for (int c = tid; c < n; c += nt) xdx[c] = T(0);
     __syncthreads();
     for (int k = p - 1; k >= 0; --k) {
       const int rank = lvl_rank[k];
       if (rank == 0) continue;
       const int fc = lvl_fc[k], end = fc + rank, fr = offs[k];
-      const int* cl = colat + k * kmax;
+      const int* cl = col_at + fc;
       const T* Rrow = lod + (size_t)fr * ld;
-      for (int i = wid; i < rank; i += nw) {
-        T s = 0;
-        for (int c = lane; c < n; c += kWarp)
-          if (pos[c] >= end) s += Rrow[i * ld + c] * xvar[c];
-        s = warp_sum(s);
-        if (lane == 0) u[i] = Rrow[i * ld + n] - s;
+      // u = rhs - R T x over the columns of the levels below (pos >= end):
+      // a warp takes kRows rows at a time, so that their loads and their
+      // shuffle sums overlap
+      for (int i0 = wid * kRows; i0 < rank; i0 += nw * kRows) {
+        T s[kRows];
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) s[q] = 0;
+        for (int c = lane; c < n; c += kWarp) {
+          if (pos[c] < end) continue;
+          const T xc = xdx[c];
+#pragma unroll
+          for (int q = 0; q < kRows; ++q)
+            if (i0 + q < rank) s[q] += Rrow[(i0 + q) * ld + c] * xc;
+        }
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) s[q] = warp_sum(s[q]);
+#pragma unroll
+        for (int q = 0; q < kRows; ++q)
+          if (lane == q && i0 + q < rank) u[i0 + q] = Rrow[(i0 + q) * ld + n] - s[q];
       }
       __syncthreads();
+      // triu(R) y = u by warp 0, kWarp rows at a time from the bottom: lane
+      // i holds u_i in a register and y_j travels by shuffle; then the rows
+      // above take the chunk's y out of their u
       if (wid == 0) {
-        for (int j = rank - 1; j >= 0; --j) {
-          const T rjj = Rrow[j * ld + cl[j]];
-          const T yj = u[j] / (rjj != T(0) ? rjj : T(1));
+        for (int cb = ((rank - 1) / kWarp) * kWarp; cb >= 0; cb -= kWarp) {
+          const int nc = rank - cb < kWarp ? rank - cb : kWarp;
+          const int i = cb + lane;
+          T ui = lane < nc ? u[i] : T(0);
+          // lane j brings column j and its diagonal entry
+          const int cmine = cl[cb + (lane < nc ? lane : 0)];
+          const T dmine = Rrow[(cb + (lane < nc ? lane : 0)) * ld + cmine];
+          for (int j = nc - 1; j >= 0; --j) {
+            const int cj = __shfl_sync(kFullMask, cmine, j);
+            const T rjj = __shfl_sync(kFullMask, dmine, j);
+            const T rij = lane < j ? Rrow[i * ld + cj] : T(0);
+            const T yj = __shfl_sync(kFullMask, ui, j) / (rjj != T(0) ? rjj : T(1));
+            if (lane == j) ui = yj;
+            else if (lane < j) ui -= yj * rij;
+          }
+          if (lane < nc) u[i] = ui;
           __syncwarp();
-          if (lane == 0) u[j] = yj;
-          for (int i = lane; i < j; i += kWarp) u[i] -= yj * Rrow[i * ld + cl[j]];
+          for (int i2 = lane; i2 < cb; i2 += kWarp) {
+            T acc = u[i2];
+            for (int j = nc - 1; j >= 0; --j) acc -= u[cb + j] * Rrow[i2 * ld + cl[cb + j]];
+            u[i2] = acc;
+          }
           __syncwarp();
         }
       }
       __syncthreads();
-      for (int c = tid; c < n; c += nt) {
-        const int q = pos[c];
-        if (q >= fc && q < end) xvar[c] += u[q - fc];
-      }
+      for (int j = tid; j < rank; j += nt) xdx[cl[j]] += u[j];
       __syncthreads();
     }
 
     // ---- step (objective.h:288-338); fixed variables take their values
     for (int c = tid; c < n; c += nt) {
-      if (d0 > 0 && fmask[c]) xvar[c] = fval[c];
-      dx[c] = xvar[c] - x[c];
+      const T xv = (d0 > 0 && fmask[c]) ? fval[c] : xdx[c];
+      xdx[c] = xv - x[c];
     }
     __syncthreads();
-    for (int i = wid; i < m; i += nw) {
-      T s = 0;
-      for (int c = lane; c < n; c += kWarp) s += A[(size_t)i * n + c] * dx[c];
-      s = warp_sum(s);
-      if (lane == 0) {
-        const int t = ct[i];
-        Adx[i] = s;
-        dv[i] = -v[i] + (is_active(t) ? Ax[i] + s - rhs_of(t, lb[i], ub[i]) : T(0));
+    const T* dx = xdx;
+    // A dx, a warp on kRows rows of A at a time (their loads from device
+    // memory in flight together)
+    for (int i0 = wid * kRows; i0 < m; i0 += nw * kRows) {
+      T s[kRows];
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) s[q] = 0;
+#pragma unroll 4
+      for (int c = lane; c < n; c += kWarp) {
+        const T dxc = dx[c];
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) {
+          const int i = i0 + q < m ? i0 + q : m - 1;
+          s[q] += A[(size_t)i * n + c] * dxc;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) s[q] = warp_sum(s[q]);
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        const int i = i0 + q;
+        if (lane == q && i < m) {
+          const int t = ct[i];
+          Adx[i] = s[q];
+          dv[i] = -v[i] + (is_active(t) ? Ax[i] + s[q] - rhs_of(t, lb[i], ub[i]) : T(0));
+        }
       }
     }
     __syncthreads();
 
-    // ---- ratio test over inactive rows; first minimum wins
-    T rloc = inf;
+    // ---- ratio test over inactive rows; the first minimum wins
+    T amin = inf;
+    long long bkey = LLONG_MAX;
     for (int i = tid; i < m; i += nt) {
       const T den = Adx[i] - dv[i];
       const bool neg = den < -a.tol_feas, posd = den > a.tol_feas;
-      T masked = inf;
       if (ct[i] == kInactive && (neg || posd)) {
         T r = ((neg ? lb[i] : ub[i]) - Ax[i] + v[i]) / den;
-        masked = r < T(0) ? T(0) : r;
+        r = r < T(0) ? T(0) : r;
+        if (r < inf) take_min_pair(amin, bkey, r, (long long)i);
       }
-      lam[i] = masked;  // lam is free until the sweep fills it
-      if (masked < rloc) rloc = masked;
     }
-    const T amin = block_min(rloc);
-    int rowloc = INT_MAX;
-    for (int i = tid; i < m; i += nt)
-      if (lam[i] != inf && lam[i] == amin && i < rowloc) rowloc = i;
-    const int brow = block_min(rowloc);
+    block_min_pair(amin, bkey, red);
+    const int brow = bkey == LLONG_MAX ? INT_MAX : (int)bkey;
     const bool blocking = amin < T(1) && brow < m;
     const T alpha = blocking ? amin : T(1);
     int btype = kInactive;
@@ -380,25 +633,38 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
     int sel_row = -1;
     T sel_val = T(0);  // the selected multiplier, for the log (0 under deact_first)
     if (!blocking) {
-      for (int idx = tid; idx < p * n; idx += nt) rhs_all[idx] = T(0);
+      for (int idx = tid; idx < (p - 1) * n; idx += nt) rhs_all[idx] = T(0);
       __syncthreads();
       for (int k = p - 1; k >= 0; --k) {
         const int dim = dims[k];
         if (dim == 0) continue;
         const int fr = offs[k], rank = lvl_rank[k], fc = lvl_fc[k];
-        const int* cl = colat + k * kmax;
+        const int* cl = col_at + fc;
         const T* Lv = lod + (size_t)fr * ld;
         for (int idx = tid; idx < p * dim; idx += nt) {
           const int jp = idx / dim, r = idx - jp * dim;
           T s = T(0);
           if (jp == k) s = r >= rank ? -Lv[r * ld + n] : T(0);
-          else if (jp > k && r < rank) s = rhs_all[jp * n + cl[r]];
+          else if (jp > k && r < rank) s = rhs_all[(jp - 1) * n + cl[r]];
           lam[jp * m + d0 + fr + r] = s;
         }
         __syncthreads();
         // S <- S Q^T, Householder replay j = K-1..0, one warp per objective
         for (int jp = k + wid; jp < p; jp += nw) {
           T* S = lam + jp * m + d0 + fr;
+          if (dim <= kWarp) {
+            // lane r holds S_r in a register
+            T sr = lane < dim ? S[lane] : T(0);
+            for (int j = rank - 1; j >= 0; --j) {
+              const T tau = hh[fr + j];
+              if (tau == T(0)) continue;
+              const T vr = lane == j ? T(1) : (lane > j && lane < dim ? Lv[lane * ld + cl[j]] : T(0));
+              const T t = tau * warp_sum(sr * vr);
+              sr -= t * vr;
+            }
+            if (lane < dim) S[lane] = sr;
+            continue;
+          }
           for (int j = rank - 1; j >= 0; --j) {
             const T tau = hh[fr + j];
             if (tau == T(0)) continue;
@@ -414,14 +680,16 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
         }
         __syncthreads();
         // back-propagate into the columns of higher levels (pos < fc),
-        // through the L rows stored in their pivot columns
-        for (int idx = tid; idx < (p - k) * n; idx += nt) {
-          const int jp = k + idx / n, c = idx % n;
+        // through the L rows stored in their pivot columns; objective 0's
+        // back-propagation is never read
+        const int jp0 = k > 1 ? k : 1;
+        for (int idx = tid; idx < (p - jp0) * n; idx += nt) {
+          const int jp = jp0 + idx / n, c = idx % n;
           if (pos[c] >= fc) continue;
           const T* S = lam + jp * m + d0 + fr;
           T s = 0;
           for (int r = 0; r < dim; ++r) s += S[r] * Lv[r * ld + c];
-          rhs_all[jp * n + c] -= s;
+          rhs_all[(jp - 1) * n + c] -= s;
         }
         __syncthreads();
       }
@@ -432,7 +700,7 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
           const int jp = idx / d0, r = idx - jp * d0;
           T s = T(0);
           if (is_active(ct[r])) {
-            const int c = a.vidx[r];
+            const int c = vidx[r];
             const T* S = lam + jp * m + d0;
             for (int i = 0; i < mg; ++i)
               if (is_active(ct[d0 + i])) s -= Ag[(size_t)i * n + c] * S[i];
@@ -443,50 +711,30 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
       }
 
       // removal selection: the first objective with a wrong-sign
-      // multiplier commits; CORRECT_SIGN marks only affect later ones
+      // multiplier commits; CORRECT_SIGN marks only affect later ones.
+      // One reduction per objective over (value, key) pairs: the oldest
+      // stamp, ties to the smallest row (deact_first), or the smallest
+      // multiplier, ties to the smallest visit priority, then row
       for (int i = tid; i < m; i += nt) sense[i] = ct[i];
       for (int j = 0; j < p && !found; ++j) {
-        T aloc = inf;
-        int kloc = INT_MAX;
+        T bv = inf;
+        long long bk = LLONG_MAX;
         for (int i = tid; i < m; i += nt) {
           const T val = lam[j * m + i];
           const T ai = ct[i] == kActiveLb ? -val : val;
           const int sn = sense[i];
-          const bool consider = a.elig[j * m + i] != 0 && (sn == kActiveLb || sn == kActiveUb);
+          const bool consider = elig[j * m + i] != 0 && (sn == kActiveLb || sn == kActiveUb);
           if (consider && ai > a.tol_correct) sense[i] = kCorrectSign;
-          const bool w = consider && ai < -a.tol_wrong;
-          wrong[i] = w;
-          if (w) {
-            if (st[i] < kloc) kloc = st[i];
-            if (ai < aloc) aloc = ai;
+          if (consider && ai < -a.tol_wrong) {
+            if (a.deact_first) take_min_pair(bv, bk, T(0), ((long long)st[i] << 32) | (long long)i);
+            else take_min_pair(bv, bk, ai, ((long long)prio[j * m + i] << 32) | (long long)i);
           }
         }
-        int row_j;
-        T am = T(0);  // the minimum wrong-sign multiplier (largest-multiplier strategy)
-        if (a.deact_first) {
-          const int kmin = block_min(kloc);
-          int rloc2 = INT_MAX;
-          for (int i = tid; i < m; i += nt)
-            if (wrong[i] && st[i] == kmin && i < rloc2) rloc2 = i;
-          row_j = block_min(rloc2);
-        } else {
-          am = block_min(aloc);
-          long long key = LLONG_MAX;
-          for (int i = tid; i < m; i += nt) {
-            const T val = lam[j * m + i];
-            const T ai = ct[i] == kActiveLb ? -val : val;
-            if (wrong[i] && ai == am) {
-              const long long kk = ((long long)a.prio[j * m + i] << 32) | (long long)i;
-              if (kk < key) key = kk;
-            }
-          }
-          key = block_min(key);
-          row_j = key == LLONG_MAX ? INT_MAX : (int)(key & 0xffffffffLL);
-        }
-        if (row_j != INT_MAX) {
+        block_min_pair(bv, bk, red);
+        if (bk != LLONG_MAX) {
           found = true;
-          sel_row = row_j;
-          sel_val = am;
+          sel_row = (int)(bk & 0xffffffffLL);
+          sel_val = a.deact_first ? T(0) : bv;
         }
       }
     }
@@ -531,12 +779,11 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
             obj = k + (d0 > 0);
             rin = row - d0 - offs[k];
           }
-          const size_t e = (size_t)b * a.log_cap + llen;
-          a.lobj[e] = obj;
-          a.lctr[e] = rin;
-          a.ltyp[e] = blocking ? btype : kInactive;
-          a.lval[e] = blocking ? alpha : sel_val;
-          a.lrank[e] = total_rank;
+          lobj[llen] = obj;
+          lctr[llen] = rin;
+          ltyp[llen] = blocking ? btype : kInactive;
+          lval[llen] = blocking ? alpha : sel_val;
+          lrank[llen] = total_rank;
         }
         llen += 1;
       } else {
@@ -558,10 +805,7 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
           if (tid == 0) {
             if (ctypv == kActiveLb) lb[crow] -= a.cyc_relax;
             else if (ctypv == kActiveUb) ub[crow] += a.cyc_relax;
-            if (a.log_cap > 0) {
-              const int last = llen - 1 < 0 ? 0 : llen - 1;
-              a.lcyc[(size_t)b * a.log_cap + last] = 1;
-            }
+            if (a.log_cap > 0) lcyc[llen - 1 < 0 ? 0 : llen - 1] = 1;
           }
           ccnt += 1;
         }
@@ -578,139 +822,134 @@ __global__ void __launch_bounds__(kFusedThreads) fused_kernel(FusedArgs<T> a) {
   // position is fc+j (zero at or past the rank), the positions, the ranks;
   // zeros / identity positions / zeros when no iteration ran
   const bool ran = it > it0;
-  T* rpad = a.rpad + (size_t)b * p * kmax * kmax;
+  T* rpad = slice<T>(a.out[kOutRpad], b, p * kmax * kmax);
   for (int idx = tid; idx < p * kmax * kmax; idx += nt) {
     const int k = idx / (kmax * kmax), rem = idx - k * kmax * kmax;
     const int i = rem / kmax, j = rem - i * kmax;
     T val = T(0);
     if (ran) {
       const int rank = lvl_rank[k];
-      if (i < rank && j < rank) val = lod[(size_t)(offs[k] + i) * ld + colat[k * kmax + j]];
+      if (i < rank && j < rank) val = lod[(size_t)(offs[k] + i) * ld + col_at[lvl_fc[k] + j]];
     }
     rpad[idx] = val;
   }
-  for (int c = tid; c < n; c += nt) a.posf[(size_t)b * n + c] = ran ? pos[c] : c;
-  for (int k = tid; k < p; k += nt) a.ranks[(size_t)b * p + k] = ran ? lvl_rank[k] : 0;
+  int* posf = slice<int>(a.out[kOutPosf], b, n);
+  int* ranks = slice<int>(a.out[kOutRanks], b, p);
+  for (int c = tid; c < n; c += nt) posf[c] = ran ? pos[c] : c;
+  for (int k = tid; k < p; k += nt) ranks[k] = ran ? lvl_rank[k] : 0;
 
+  // ---- exit: the state into the output tensors
+  {
+    T* gx = slice<T>(a.out[kOutX], b, n);
+    T* gdx = slice<T>(a.out[kOutDx], b, n);
+    T* gv = slice<T>(a.out[kOutV], b, m);
+    T* gAx = slice<T>(a.out[kOutAx], b, m);
+    T* gdv = slice<T>(a.out[kOutDv], b, m);
+    T* gAdx = slice<T>(a.out[kOutAdx], b, m);
+    T* glb = slice<T>(a.out[kOutLb], b, m);
+    T* gub = slice<T>(a.out[kOutUb], b, m);
+    int* gct = slice<int>(a.out[kOutCt], b, m);
+    int* gst = slice<int>(a.out[kOutSt], b, m);
+    for (int c = tid; c < n; c += nt) {
+      gx[c] = x[c];
+      gdx[c] = xdx[c];
+    }
+    for (int i = tid; i < m; i += nt) {
+      gv[i] = v[i];
+      gAx[i] = Ax[i];
+      gdv[i] = dv[i];
+      gAdx[i] = Adx[i];
+      gct[i] = ct[i];
+      gst[i] = st[i];
+      if (glb) {
+        glb[i] = lb[i];
+        gub[i] = ub[i];
+      }
+    }
+  }
   if (tid == 0) {
-    a.ns[b] = ns;
-    a.nf[b] = nf;
-    a.it[b] = it;
-    a.na[b] = na;
-    a.nd[b] = nd;
-    a.status[b] = status;
-    if (a.log_cap > 0) {
-      a.llen[b] = llen;
-      a.lovf[b] = lovf;
-    }
-    if (a.cycling) {
-      a.ccnt[b] = ccnt;
-      a.cop[b] = cop;
-      a.crow[b] = crow;
-      a.ctypv[b] = ctypv;
-    }
+    ((int*)a.out[kOutNs])[b] = ns;
+    ((int*)a.out[kOutNf])[b] = nf;
+    ((int*)a.out[kOutIt])[b] = it;
+    ((int*)a.out[kOutNa])[b] = na;
+    ((int*)a.out[kOutNd])[b] = nd;
+    ((int*)a.out[kOutStatus])[b] = status;
+    ((int*)a.out[kOutLlen])[b] = llen;
+    ((int*)a.out[kOutLovf])[b] = lovf;
+    ((int*)a.out[kOutCcnt])[b] = ccnt;
+    ((int*)a.out[kOutCop])[b] = cop;
+    ((int*)a.out[kOutCrow])[b] = crow;
+    ((int*)a.out[kOutCtyp])[b] = ctypv;
   }
 }
 
-template <typename T>
-int launch_fused(FusedArgs<T> a, int B, cudaStream_t stream) {
-  if (B > 0) fused_kernel<T><<<B, kFusedThreads, 0, stream>>>(a);
+// `in`, `out`, `off`, `ints` and `reals` are host arrays in the order of
+// the enums above.  With ints[kIntQuery] != 0 nothing is launched: the
+// entry returns the resident blocks per SM at this shared-memory size (or
+// minus the CUDA error).
+template <typename T, bool kLodShared>
+int launch_fused(const FusedArgs<T>& a, int B, size_t smem_bytes, int query, cudaStream_t stream) {
+  static size_t configured = 0;
+  auto kernel = fused_kernel<T, kLodShared>;
+  cudaError_t err = configure_shared(kernel, smem_bytes, configured);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return query ? -(int)err : (int)err;
+  }
+  if (query) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFusedThreads,
+                                                        smem_bytes);
+    return err == cudaSuccess ? blocks : -(int)err;
+  }
+  if (B > 0) kernel<<<B, kFusedThreads, smem_bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int fused_entry(const T* A, T* lb, T* ub, int* ct, int* st, int* ns, T* x, T* v,
-                T* Ax, int* nf, const int* it0, T* dx, T* dv, T* Adx, int* it, int* na, int* nd,
-                int* status, T* rpad, int* posf, int* ranks, const int* lvl, const int* prio,
-                const int* elig, const int* vidx, T* work, int* iwork, int* lobj, int* lctr,
-                int* ltyp, T* lval, int* lrank, int* lcyc, int* llen, int* lovf, int* ccnt,
-                int* cop, int* crow, int* ctypv, int B, int m, int n,
-                int p, int d0, int kmax, int dmax, T tol_ld, T tol_feas, T tol_wrong,
-                T tol_correct, int max_fact, int deact_first, int iter_cap, int log_cap,
-                int cycling, int cyc_max, T cyc_relax, void* stream) {
+int fused_entry(const void* const* in, void* const* out, const int* off, const int* ints,
+                const double* reals, void* stream) {
   FusedArgs<T> a;
-  a.A = A;
-  a.lb = lb;
-  a.ub = ub;
-  a.ct = ct;
-  a.st = st;
-  a.ns = ns;
-  a.x = x;
-  a.v = v;
-  a.Ax = Ax;
-  a.nf = nf;
-  a.it0 = it0;
-  a.dx = dx;
-  a.dv = dv;
-  a.Adx = Adx;
-  a.it = it;
-  a.na = na;
-  a.nd = nd;
-  a.status = status;
-  a.rpad = rpad;
-  a.posf = posf;
-  a.ranks = ranks;
-  a.lvl = lvl;
-  a.prio = prio;
-  a.elig = elig;
-  a.vidx = vidx;
-  a.work = work;
-  a.iwork = iwork;
-  a.lobj = lobj;
-  a.lctr = lctr;
-  a.ltyp = ltyp;
-  a.lval = lval;
-  a.lrank = lrank;
-  a.lcyc = lcyc;
-  a.llen = llen;
-  a.lovf = lovf;
-  a.ccnt = ccnt;
-  a.cop = cop;
-  a.crow = crow;
-  a.ctypv = ctypv;
-  a.m = m;
-  a.n = n;
-  a.p = p;
-  a.d0 = d0;
-  a.kmax = kmax;
-  a.dmax = dmax;
-  const size_t mg = (size_t)(m - d0);
-  a.wstride = mg * (n + 1) + mg + n + dmax + n + (size_t)p * m + (size_t)p * n + mg * kmax + n;
-  a.iwstride = (size_t)n + (size_t)p * kmax + 2 * (size_t)m + 2 * (size_t)p + n;
-  a.tol_ld = tol_ld;
-  a.tol_feas = tol_feas;
-  a.tol_wrong = tol_wrong;
-  a.tol_correct = tol_correct;
-  a.max_fact = max_fact;
-  a.deact_first = deact_first;
-  a.iter_cap = iter_cap;
-  a.log_cap = log_cap;
-  a.cycling = cycling;
-  a.cyc_max = cyc_max;
-  a.cyc_relax = cyc_relax;
-  return launch_fused<T>(a, B, (cudaStream_t)stream);
+  for (int i = 0; i < kFusedInputs; ++i) a.in[i] = in[i];
+  for (int i = 0; i < kFusedOutputs; ++i) a.out[i] = out[i];
+  for (int i = 0; i < kFusedRegions; ++i) a.off[i] = off[i];
+  a.m = ints[kIntM];
+  a.n = ints[kIntN];
+  a.p = ints[kIntP];
+  a.d0 = ints[kIntD0];
+  a.kmax = ints[kIntKmax];
+  a.ld = ints[kIntLd];
+  a.tol_ld = (T)reals[kRealTolLd];
+  a.tol_feas = (T)reals[kRealTolFeas];
+  a.tol_wrong = (T)reals[kRealTolWrong];
+  a.tol_correct = (T)reals[kRealTolCorrect];
+  a.max_fact = ints[kIntMaxFact];
+  a.deact_first = ints[kIntDeactFirst];
+  a.iter_cap = ints[kIntIterCap];
+  a.log_cap = ints[kIntLogCap];
+  a.cycling = ints[kIntCycling];
+  a.cyc_max = ints[kIntCycMax];
+  a.cyc_relax = (T)reals[kRealCycRelax];
+  const size_t smem_bytes = (size_t)ints[kIntSmemBytes];
+  return ints[kIntLodShared]
+             ? launch_fused<T, true>(a, ints[kIntB], smem_bytes, ints[kIntQuery],
+                                     (cudaStream_t)stream)
+             : launch_fused<T, false>(a, ints[kIntB], smem_bytes, ints[kIntQuery],
+                                      (cudaStream_t)stream);
 }
 
 }  // namespace lexls
 
-#define LEXLS_FUSED_ENTRY(NAME, T)                                                              \
-  int NAME(const T* A, T* lb, T* ub, int* ct, int* st, int* ns, T* x, T* v, T* Ax, int* nf,     \
-           const int* it0, T* dx, T* dv, T* Adx, int* it, int* na, int* nd, int* status,        \
-           T* rpad, int* posf, int* ranks, const int* lvl, const int* prio, const int* elig,    \
-           const int* vidx, T* work, int* iwork, int* lobj, int* lctr, int* ltyp, T* lval,      \
-           int* lrank, int* lcyc, int* llen, int* lovf, int* ccnt, int* cop, int* crow,         \
-           int* ctypv, int B, int m, int n, int p, int d0, int kmax, int dmax, T tol_ld,        \
-           T tol_feas, T tol_wrong, T tol_correct, int max_fact, int deact_first, int iter_cap, \
-           int log_cap, int cycling, int cyc_max, T cyc_relax, void* stream) {                  \
-    return lexls::fused_entry<T>(A, lb, ub, ct, st, ns, x, v, Ax, nf, it0, dx, dv, Adx, it, na, \
-                                 nd, status, rpad, posf, ranks, lvl, prio, elig, vidx, work,    \
-                                 iwork, lobj, lctr, ltyp, lval, lrank, lcyc, llen, lovf, ccnt,  \
-                                 cop, crow, ctypv, B, m, n, p, d0, kmax, dmax, tol_ld,          \
-                                 tol_feas, tol_wrong, tol_correct, max_fact, deact_first,       \
-                                 iter_cap, log_cap, cycling, cyc_max, cyc_relax, stream);       \
-  }
-
 extern "C" {
-LEXLS_FUSED_ENTRY(lexls_fused_active_set_f32, float)
-LEXLS_FUSED_ENTRY(lexls_fused_active_set_f64, double)
+
+int lexls_fused_active_set_f32(const void* const* in, void* const* out, const int* off,
+                               const int* ints, const double* reals, void* stream) {
+  return lexls::fused_entry<float>(in, out, off, ints, reals, stream);
+}
+
+int lexls_fused_active_set_f64(const void* const* in, void* const* out, const int* off,
+                               const int* ints, const double* reals, void* stream) {
+  return lexls::fused_entry<double>(in, out, off, ints, reals, stream);
+}
+
 }  // extern "C"

@@ -99,3 +99,38 @@ def bind(name: str, argtypes: tuple) -> ctypes._CFuncPtr:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+# A measurement sets this to a list: every launch then appends (entry name,
+# start event, end event), recorded on the current stream right around the
+# C entry, so that a kernel's own device time can be told from whatever else
+# its wrapper does.  None (the default) costs a launch one comparison.
+LAUNCH_EVENTS = None
+
+
+def current_stream(device) -> int:
+    """The raw handle of torch's current CUDA stream on ``device`` (through
+    torch's own fast accessor where this torch has it: a launch's host time
+    is part of its cost)."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(fn, name: str, *args) -> None:
+    """Call the bound C entry ``fn`` (which launches its kernel on the
+    stream it is given), raise if the launch was refused."""
+    if LAUNCH_EVENTS is None:
+        check(fn(*args), name)
+        return
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    err = fn(*args)
+    end.record()
+    check(err, name)
+    LAUNCH_EVENTS.append((name, start, end))

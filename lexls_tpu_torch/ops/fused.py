@@ -11,7 +11,10 @@ carried-factorization tracker starts from, the working-set log
 (``log_cap`` > 0) and cycling handling (``cycling``), whose states come
 in and go out so that a paused call resumes them.  On a CUDA tensor it
 launches ``csrc/fused.cu`` (one thread block per instance, which loops
-until its own instance terminates or pauses); on a CPU tensor it runs
+until its own instance terminates or pauses, with the instance's state in
+shared memory as :func:`fused_layout` places it; the kernel reads the
+caller's tensors and writes new ones, so the wrapper copies nothing); on
+a CPU tensor it runs
 ``fused_active_set_ref``, a batched torch transliteration of the kernel's
 stages with per-instance freezing, written for clarity.
 
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,7 +46,8 @@ from ..lexlsi import (
 )
 from ..types import CtrType, TerminationStatus
 from . import _build
-from .panel_lqr import INT_MAX, _SUFFIX, _check_cuda_args, _panel_step
+from .panel_lqr import (INT_MAX, _STEP_BYTES, _SUFFIX, SharedLayout, _check_cuda_args,
+                        _int_array, _panel_step, odd_stride, pack_regions)
 
 
 class ActiveSetResult(NamedTuple):
@@ -391,7 +395,83 @@ def fused_active_set_ref(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fac
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_I = ctypes.c_int
+_THREADS = 128  # csrc/fused.cu::kFusedThreads
+
+# The entry's argument arrays, in the order of csrc/fused.cu's enums
+# FusedInput, FusedOutput, FusedInt, FusedReal and FusedRegion.
+FUSED_INPUTS = ("A", "lb", "ub", "ct", "st", "ns", "x", "v", "Ax", "nf", "it0",
+                "lobj", "lctr", "ltyp", "lval", "lrank", "lcyc", "llen", "lovf",
+                "ccnt", "cop", "crow", "ctyp", "lvl", "prio", "elig", "vidx")
+FUSED_OUTPUTS = ("x", "v", "Ax", "dx", "dv", "Adx", "ct", "st", "ns", "it", "na", "nd", "nf",
+                 "status", "rpad", "posf", "ranks", "lb", "ub",
+                 "lobj", "lctr", "ltyp", "lval", "lrank", "lcyc", "llen", "lovf",
+                 "ccnt", "cop", "crow", "ctyp", "work")
+FUSED_INTS = ("B", "m", "n", "p", "d0", "kmax", "ld", "lod_shared", "smem_bytes", "max_fact",
+              "deact_first", "iter_cap", "log_cap", "cycling", "cyc_max", "query")
+FUSED_REALS = ("tol_ld", "tol_feas", "tol_wrong", "tol_correct", "cyc_relax")
+FUSED_REGIONS = ("lod", "hh", "cn", "u", "xdx", "lam", "rhs_all", "fval", "x", "v", "Ax", "dv",
+                 "Adx", "lb", "ub", "red", "step", "pos", "col_at", "sense", "ct", "st",
+                 "lvl_fc", "lvl_rank", "fmask")
+
+
+@functools.lru_cache(maxsize=256)
+def fused_layout(m: int, n: int, p: int, d0: int, dmax: int, dtype,
+                 lod_shared: Optional[bool] = None) -> SharedLayout:
+    """Kernel B2's shared memory for one instance (``FUSED_REGIONS``): the
+    masked subproblem (LOD) over the ``m - d0`` general rows at an odd row
+    stride, the taus, column norms, reflection vector (``dmax``, the
+    largest level), basic solution / step, multipliers of every objective
+    over all rows, the λ back-propagation of objectives 1.., the fixed
+    variables' values and flags (``d0 > 0`` only), x, v, Ax, dv, Adx, the
+    bounds, the reduction scratch and the step's scalars, then the
+    permutation and its inverse, the marked types, the working set, the
+    stamps and each level's first position and rank.
+
+    The rule, stated here and nowhere else: the LOD lives in shared memory
+    exactly when all of this fits what a thread block may use
+    (``SMEM_BLOCK_LIMIT``, 227 KB); otherwise it stays in device memory and
+    the rest is in shared memory.  ``lod_shared`` forces either, for
+    measurements."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    mg, ld = m - d0, odd_stride(n)
+    fixed = n if d0 else 0
+    reals = (mg * ld, mg, n, dmax, n, p * m, (p - 1) * n, fixed, n, m, m, m, m, m, m)
+    ints = (n, n, m, m, m, p, p, fixed)
+    sizes = (*(k * es for k in reals), (_THREADS // 32) * (8 + es), _STEP_BYTES,
+             *(k * 4 for k in ints))
+    shared, offsets, sizes, nbytes, all_shared = pack_regions(sizes, 0, lod_shared)
+    return SharedLayout(shared, ld, offsets, sizes, nbytes, all_shared)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_entry(dtype):
+    name = f"lexls_fused_active_set_{_SUFFIX[dtype][0]}"
+    return name, _build.bind(name, (_P,) * 6)
+
+
+def _entry_args(ins, outs, lay: SharedLayout, ints: dict, reals, stream):
+    """The C entry's six arguments: ``ins`` / ``outs`` are pointers (or None)
+    in the order of ``FUSED_INPUTS`` / ``FUSED_OUTPUTS``, ``reals`` numbers
+    in the order of ``FUSED_REALS``, ``ints`` by name (the layout's are
+    added here)."""
+    ints = dict(ints, ld=lay.ld, lod_shared=int(lay.in_shared), smem_bytes=lay.nbytes)
+    return (_IN_ARRAY(*ins), _OUT_ARRAY(*outs), _int_array(lay.offsets),
+            _int_array(tuple(ints.get(k, 0) for k in FUSED_INTS)), _REAL_ARRAY(*reals), stream)
+
+
+_IN_ARRAY = _P * len(FUSED_INPUTS)
+_OUT_ARRAY = _P * len(FUSED_OUTPUTS)
+_REAL_ARRAY = ctypes.c_double * len(FUSED_REALS)
+
+
+def fused_occupancy(lay: SharedLayout, dtype) -> int:
+    """Resident blocks per SM that the card reports for kernel B2 at this
+    layout's shared-memory size (needs the card)."""
+    name, fn = _fused_entry(dtype)
+    got = fn(*_entry_args((), (), lay, dict(query=1), (), None))
+    if got < 0:
+        raise RuntimeError(f"{name}: CUDA error {-got} at {lay.nbytes} bytes of shared memory")
+    return got
 
 
 @functools.lru_cache(maxsize=64)
@@ -416,7 +496,8 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
                      log_state=None, cyc_state=None, *,
                      dims, prio, elig, tol_ld, tol_feas, tol_wrong, tol_correct,
                      max_fact, deact_first, d0=0, var_idx=(), iter_cap=0, log_cap=0,
-                     cycling=False, cyc_max=50, cyc_relax=1e-8) -> ActiveSetResult:
+                     cycling=False, cyc_max=50, cyc_relax=1e-8,
+                     lod_shared: Optional[bool] = None) -> ActiveSetResult:
     """Run the active-set loop of a batch to termination, or to a pause.
 
     A (B, m, n); lb, ub, v, Ax (B, m); x (B, n); ctr_type, stamp (B, m)
@@ -440,7 +521,12 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
     with the relaxed bounds.
 
     Launches the CUDA kernel for CUDA tensors, runs the plain version for
-    CPU tensors, and raises otherwise.
+    CPU tensors, and raises otherwise.  The kernel reads its inputs and
+    writes new output tensors: no input is written or copied by the
+    wrapper, and the result's ``lb``/``ub`` are the inputs themselves
+    unless cycling handling is on.  ``lod_shared`` forces the kernel's
+    layout (:func:`fused_layout`) for measurements; a launch that the card
+    refuses raises.
     """
     kw = dict(dims=dims, prio=prio, elig=elig, tol_ld=tol_ld, tol_feas=tol_feas,
               tol_wrong=tol_wrong, tol_correct=tol_correct, max_fact=max_fact,
@@ -457,67 +543,63 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
     dev, dtype = A.device, A.dtype
     if sum(dims) != mg or prio.shape != (p, m) or elig.shape != (p, m) or len(var_idx) != d0:
         raise ValueError("fused_active_set: dims/d0/var_idx/prio/elig do not match A")
-    if it0 is None:
-        it0 = torch.zeros(B, dtype=torch.int32, device=dev)
-    # the log and the detector are per-instance state that the kernel
-    # updates in place: copies of what was given when their option is on,
-    # untouched placeholders otherwise; so are the bounds under cycling
-    log = _empty_log(B, log_cap, dtype, dev) if log_state is None else tuple(log_state)
-    cyc = _initial_cycling(B, dev) if cyc_state is None else tuple(cyc_state)
-    if log_cap:
-        log = tuple(t.clone() for t in log)
-    if cycling:
-        cyc = tuple(t.clone() for t in cyc)
-        lb, ub = lb.clone(), ub.clone()
+    log_in = () if log_state is None else tuple(log_state)
+    cyc_in = () if cyc_state is None else tuple(cyc_state)
     for t, shape in ((lb, (B, m)), (ub, (B, m)), (v, (B, m)), (Ax, (B, m)), (x, (B, n)),
                      (ctr_type, (B, m)), (stamp, (B, m)), (next_stamp, (B,)), (n_fact, (B,)),
-                     (it0, (B,)), *((t, (B, log_cap)) for t in log[:6]),
-                     *((t, (B,)) for t in log[6:] + cyc)):
+                     *(() if it0 is None else ((it0, (B,)),)),
+                     *((t, (B, log_cap)) for t in log_in[:6]),
+                     *((t, (B,)) for t in log_in[6:] + cyc_in)):
         if t.shape != shape:
             raise ValueError(f"fused_active_set: expected shape {shape}, got {tuple(t.shape)}")
     vidx = _var_index(tuple(var_idx), n, dev)
-    _check_cuda_args([A, lb, ub, x, v, Ax, log[3]],
-                     [ctr_type, stamp, next_stamp, n_fact, it0, prio, elig, vidx,
-                      *log[:3], *log[4:], *cyc], A.dtype)
-    suffix, c_real = _SUFFIX[A.dtype]
+    lvl = _level_table(tuple(dims), dev)
+    _check_cuda_args([A, lb, ub, x, v, Ax, *log_in[3:4]],
+                     [ctr_type, stamp, next_stamp, n_fact, prio, elig, vidx,
+                      *(() if it0 is None else (it0,)), *log_in[:3], *log_in[4:], *cyc_in], dtype)
     kmax = _kmax(dims, n)
     dmax = max(1, max(dims, default=1))
-    ct, st, ns, nf = ctr_type.clone(), stamp.clone(), next_stamp.clone(), n_fact.clone()
-    x, v, Ax = x.clone(), v.clone(), Ax.clone()
-    dx = torch.empty(B, n, dtype=dtype, device=dev)
-    dv, Adx = torch.empty(B, m, dtype=dtype, device=dev), torch.empty(B, m, dtype=dtype, device=dev)
-    it, na, nd, status = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4))
+    lay = fused_layout(m, n, p, d0, dmax, dtype, lod_shared)
+
+    def empty(count, *shape, dtype=torch.int32):
+        """``count`` output tensors of ``shape`` in one allocation (the host's
+        time to issue a call is part of its cost, and an allocation costs
+        less than taking a buffer apart does: so only for three and more)."""
+        if count < 3:
+            return [torch.empty(*shape, dtype=dtype, device=dev) for _ in range(count)]
+        return torch.empty(count, *shape, dtype=dtype, device=dev).unbind(0)
+
+    # outputs, in the order of FUSED_OUTPUTS; the bounds are an output only
+    # where the detector may relax them, `work` only when the LOD is not in
+    # shared memory, and without a log its five (B, 0) arrays are one tensor
+    x_o, dx_o = empty(2, B, n, dtype=dtype)
+    v_o, Ax_o, dv_o, Adx_o, *bounds_o = empty(6 if cycling else 4, B, m, dtype=dtype)
+    ct_o, st_o = empty(2, B, m)
+    ns_o, it_o, na_o, nd_o, nf_o, status_o, llen_o, lovf_o, *cyc_o = empty(12, B)
+    lobj_o, lctr_o, ltyp_o, lrank_o, lcyc_o = (
+        empty(5, B, log_cap) if log_cap else (torch.empty(B, 0, dtype=torch.int32, device=dev),) * 5)
+    lval_o = torch.empty(B, log_cap, dtype=dtype, device=dev)
     rpad = torch.empty(B, p, kmax, kmax, dtype=dtype, device=dev)
-    posf = torch.empty(B, n, dtype=torch.int32, device=dev)
-    ranks = torch.empty(B, p, dtype=torch.int32, device=dev)
-    lvl = _level_table(tuple(dims), dev)
-    # per instance (strides as csrc/fused.cu computes them): lod over the
-    # general rows, hh, column norms, reflection vector, x, multipliers
-    # over all rows, λ back-propagation, L rows, fixed values; then pos,
-    # level columns, sense, wrong-sign flags, level first positions and
-    # ranks, fixed-variable flags
-    wstride = mg * (n + 1) + mg + n + dmax + n + p * m + p * n + mg * kmax + n
-    iwstride = n + p * kmax + 2 * m + 2 * p + n
-    work = torch.empty(B, wstride, dtype=dtype, device=dev)
-    iwork = torch.empty(B, iwstride, dtype=torch.int32, device=dev)
-    name = f"lexls_fused_active_set_{suffix}"
-    fn = _build.bind(name, (_P,) * 39 + (_I,) * 7 + (c_real,) * 4 + (_I,) * 6
-                     + (c_real, _P))
-    err = fn(A.data_ptr(), lb.data_ptr(), ub.data_ptr(), ct.data_ptr(), st.data_ptr(),
-             ns.data_ptr(), x.data_ptr(), v.data_ptr(), Ax.data_ptr(), nf.data_ptr(),
-             it0.data_ptr(), dx.data_ptr(), dv.data_ptr(), Adx.data_ptr(), it.data_ptr(),
-             na.data_ptr(), nd.data_ptr(), status.data_ptr(), rpad.data_ptr(),
-             posf.data_ptr(), ranks.data_ptr(), lvl.data_ptr(), prio.data_ptr(),
-             elig.data_ptr(), vidx.data_ptr(), work.data_ptr(), iwork.data_ptr(),
-             *(t.data_ptr() for t in log + cyc),
-             B, m, n, p, d0, kmax, dmax, tol_ld, tol_feas, tol_wrong, tol_correct,
-             int(max_fact), int(bool(deact_first)), int(iter_cap), int(log_cap),
-             int(bool(cycling)), int(cyc_max), cyc_relax,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, name)
+    posf, ranks = empty(1, B, n)[0], empty(1, B, p)[0]
+    work = None if lay.in_shared else torch.empty(B, mg * lay.ld, dtype=dtype, device=dev)
+    outs = (x_o, v_o, Ax_o, dx_o, dv_o, Adx_o, ct_o, st_o, ns_o, it_o, na_o, nd_o, nf_o, status_o,
+            rpad, posf, ranks, *(bounds_o or (None, None)),
+            lobj_o, lctr_o, ltyp_o, lval_o, lrank_o, lcyc_o, llen_o, lovf_o, *cyc_o, work)
+    ins = (A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, it0,
+           *(log_in or (None,) * 8), *(cyc_in or (None,) * 4), lvl, prio, elig, vidx)
+    name, fn = _fused_entry(dtype)
+    _build.launch(fn, name, *_entry_args(
+        [None if t is None else t.data_ptr() for t in ins],
+        [None if t is None else t.data_ptr() for t in outs], lay,
+        dict(B=B, m=m, n=n, p=p, d0=d0, kmax=kmax, max_fact=int(max_fact),
+             deact_first=int(bool(deact_first)), iter_cap=int(iter_cap), log_cap=int(log_cap),
+             cycling=int(bool(cycling)), cyc_max=int(cyc_max)),
+        (tol_ld, tol_feas, tol_wrong, tol_correct, cyc_relax), _build.current_stream(dev)))
     fused_active_set.launches += 1
-    return ActiveSetResult(x, v, dx, dv, Ax, Adx, ct, st, ns, it, na, nd, nf, status,
-                           rpad, posf, ranks, lb, ub, *log, *cyc)
+    lb_o, ub_o = bounds_o or (lb, ub)
+    return ActiveSetResult(x_o, v_o, dx_o, dv_o, Ax_o, Adx_o, ct_o, st_o, ns_o, it_o, na_o, nd_o,
+                           nf_o, status_o, rpad, posf, ranks, lb_o, ub_o, lobj_o, lctr_o, ltyp_o,
+                           lval_o, lrank_o, lcyc_o, llen_o, lovf_o, *cyc_o)
 
 
 fused_active_set.launches = 0

@@ -5,7 +5,8 @@ column-pivoted Householder factorization (reference ``lexlse.h:182-268``)
 for every instance of a batch.  It replaces the Pallas TPU kernel
 ``lexls_tpu/ops/pallas_lqr.py::panel_factorize`` (``pl.pallas_call`` at
 ``pallas_lqr.py:238``).  On a CUDA tensor it launches the hand-written
-kernel in ``csrc/panel_lqr.cu`` (one thread block per instance); on a CPU
+kernel in ``csrc/panel_lqr.cu`` (one thread block per instance, the level
+block in shared memory where :func:`panel_layout` says it fits); on a CPU
 tensor it runs ``panel_factorize_ref``, the plain batched version of the
 same steps.  ``_panel_step`` is the plain step that both plain versions
 (this one and ``ops/fused.py``'s) share, as the CUDA kernels share
@@ -15,7 +16,8 @@ same steps.  ``_panel_step`` is the plain step that both plain versions
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -128,8 +130,85 @@ def panel_factorize_ref(block, pos, col_at, col_index, rank_row, *, fr, tol):
 
 
 _P = ctypes.c_void_p
-_PANEL_ARGS = [_P] * 7 + [ctypes.c_int] * 4
+_I = ctypes.c_int
 _SUFFIX = {torch.float32: ("f32", ctypes.c_float), torch.float64: ("f64", ctypes.c_double)}
+
+# Shared memory of an H100 SM: what one thread block may use (227 KB), and
+# what the SM has (228 KB), of which every resident block reserves 1 KB.
+SMEM_BLOCK_LIMIT = 232448
+SMEM_SM_BYTES = 233472
+SMEM_BLOCK_RESERVED = 1024
+MAX_BLOCKS_PER_SM = 16  # 2048 threads an SM over the kernels' 128 a block
+
+
+class SharedLayout(NamedTuple):
+    """Where a kernel keeps one instance's state.  ``in_shared``: the big
+    array (B1's level block, B2's LOD) lives in shared memory at row stride
+    ``ld``; otherwise it stays in device memory and only the small vectors
+    are in shared memory.  ``offsets`` are the byte offsets of the regions
+    (in the order of the kernel's enum) inside the ``nbytes`` of dynamic
+    shared memory a block asks for; ``sizes`` their bytes;
+    ``nbytes_all_shared`` is what the block would need with the big array
+    in shared memory, the number the rule looks at."""
+
+    in_shared: bool
+    ld: int
+    offsets: Tuple[int, ...]
+    sizes: Tuple[int, ...]
+    nbytes: int
+    nbytes_all_shared: int
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Resident blocks an SM's shared memory allows."""
+        return min(MAX_BLOCKS_PER_SM, SMEM_SM_BYTES // (self.nbytes + SMEM_BLOCK_RESERVED))
+
+
+def odd_stride(n: int) -> int:
+    """Row stride of an (rows, n + 1) array in shared memory: the smallest
+    odd number that holds n + 1 entries, so that a gather down a column
+    hits a different bank in every row."""
+    return n + 1 if n % 2 == 0 else n + 2
+
+
+def pack_regions(sizes, big: int, in_shared):
+    """Lay regions of ``sizes`` bytes out one after another, each aligned
+    to 8 bytes; region ``big`` is left out (size 0) when the whole does not
+    fit a block's shared memory, or as ``in_shared`` forces.  Returns
+    (in_shared, offsets, sizes, nbytes, nbytes_all_shared)."""
+    def pack(szs):
+        offsets, at = [], 0
+        for sz in szs:
+            offsets.append(at)
+            at += -(-sz // 8) * 8
+        return tuple(offsets), at
+
+    _, all_shared = pack(sizes)
+    if in_shared is None:
+        in_shared = all_shared <= SMEM_BLOCK_LIMIT
+    sizes = tuple(sz if in_shared or i != big else 0 for i, sz in enumerate(sizes))
+    offsets, nbytes = pack(sizes)
+    return bool(in_shared), offsets, sizes, nbytes, all_shared
+
+
+_STEP_BYTES = 320  # csrc/panel_step.cuh::StepScratch<double>; float needs less
+
+# csrc/panel_lqr.cu::PanelRegion, in order
+PANEL_REGIONS = ("blk", "cn", "hh", "den", "pos", "col_at", "rank_row", "step")
+
+
+@functools.lru_cache(maxsize=256)
+def panel_layout(dim: int, n: int, dtype, blk_shared: Optional[bool] = None) -> SharedLayout:
+    """Kernel B1's shared memory for a (dim, n + 1) level block: the block
+    at an odd row stride, the column norms, the taus, the steps'
+    denominators, the permutation and its inverse, the pivot rows, the
+    step's scratch.  The block stays in device memory when all of it exceeds what
+    a thread block may use (``blk_shared`` forces either)."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    ld = odd_stride(n)
+    sizes = (dim * ld * es, n * es, dim * es, dim * es, n * 4, n * 4, n * 4, _STEP_BYTES)
+    shared, offsets, sizes, nbytes, all_shared = pack_regions(sizes, 0, blk_shared)
+    return SharedLayout(shared, ld, offsets, sizes, nbytes, all_shared)
 
 
 def _check_cuda_args(floats, ints, dtype):
@@ -149,13 +228,41 @@ def _check_cuda_args(floats, ints, dtype):
             raise TypeError(f"expected int32, got {t.dtype}")
 
 
-def panel_factorize(block, pos, col_at, col_index, rank_row, *, fr: int, tol: float):
+@functools.lru_cache(maxsize=1024)
+def _int_array(values: tuple):
+    """A C int array of ``values`` (kept: a layout's offsets go to every
+    launch)."""
+    return (ctypes.c_int * len(values))(*values)
+
+
+@functools.lru_cache(maxsize=None)
+def _panel_entry(dtype):
+    suffix, c_real = _SUFFIX[dtype]
+    name = f"lexls_panel_factorize_{suffix}"
+    return name, _build.bind(name, (_P,) * 12 + (_I,) * 8 + (c_real, _P))
+
+
+def panel_occupancy(lay: SharedLayout, dtype) -> int:
+    """Resident blocks per SM that the card reports for kernel B1 at this
+    layout's shared-memory size (needs the card)."""
+    name, fn = _panel_entry(dtype)
+    got = fn(*(None,) * 11, _int_array(lay.offsets), 0, 0, 0, 0, int(lay.in_shared), lay.ld,
+             lay.nbytes, 1, 0.0, None)
+    if got < 0:
+        raise RuntimeError(f"{name}: CUDA error {-got} at {lay.nbytes} bytes of shared memory")
+    return got
+
+
+def panel_factorize(block, pos, col_at, col_index, rank_row, *, fr: int, tol: float,
+                    blk_shared: Optional[bool] = None):
     """Level-panel factorization of a batch.
 
     block (B, dim, n+1), pos/col_at/rank_row (B, n) int32, col_index (B,)
-    int32.  Returns (block, pos, col_at, col_index, rank_row, hh (B, dim)).
-    Launches the CUDA kernel for CUDA tensors, runs the plain version for
-    CPU tensors, and raises otherwise.
+    int32.  Returns (block, pos, col_at, col_index, rank_row, hh (B, dim)),
+    all new tensors: no input is written.  Launches the CUDA kernel for
+    CUDA tensors, runs the plain version for CPU tensors, and raises
+    otherwise.  ``blk_shared`` forces the kernel's layout
+    (:func:`panel_layout`); a launch that the card refuses raises.
     """
     if block.device.type == "cpu":
         return panel_factorize_ref(block, pos, col_at, col_index, rank_row, fr=fr, tol=tol)
@@ -167,19 +274,19 @@ def panel_factorize(block, pos, col_at, col_index, rank_row, *, fr: int, tol: fl
             or col_index.shape != (B,):
         raise ValueError("panel_factorize: inconsistent shapes")
     _check_cuda_args([block], [pos, col_at, col_index, rank_row], block.dtype)
-    suffix, c_real = _SUFFIX[block.dtype]
-    block, pos, col_at = block.clone(), pos.clone(), col_at.clone()
-    col_index, rank_row = col_index.clone(), rank_row.clone()
+    lay = panel_layout(dim, n, block.dtype, blk_shared)
+    ins = (block, pos, col_at, col_index, rank_row)
+    # few allocations: the host's time to issue a call is part of its cost
+    pos_o, col_at_o, rank_row_o = torch.empty(
+        3, B, n, dtype=torch.int32, device=block.device).unbind(0)
+    outs = (torch.empty_like(block), pos_o, col_at_o, torch.empty_like(col_index), rank_row_o)
     hh = torch.empty(B, dim, dtype=block.dtype, device=block.device)
-    scratch = torch.empty(B, n + dim, dtype=block.dtype, device=block.device)
-    name = f"lexls_panel_factorize_{suffix}"
-    fn = _build.bind(name, (*_PANEL_ARGS, c_real, _P))
-    err = fn(block.data_ptr(), pos.data_ptr(), col_at.data_ptr(), col_index.data_ptr(),
-             rank_row.data_ptr(), hh.data_ptr(), scratch.data_ptr(), B, dim, n, fr,
-             tol, torch.cuda.current_stream(block.device).cuda_stream)
-    _build.check(err, name)
+    name, fn = _panel_entry(block.dtype)
+    _build.launch(fn, name, *(t.data_ptr() for t in ins + outs), hh.data_ptr(),
+                  _int_array(lay.offsets), B, dim, n, fr, int(lay.in_shared), lay.ld, lay.nbytes,
+                  0, tol, _build.current_stream(block.device))
     panel_factorize.launches += 1
-    return block, pos, col_at, col_index, rank_row, hh
+    return (*outs, hh)
 
 
 panel_factorize.launches = 0

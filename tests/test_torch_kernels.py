@@ -7,7 +7,8 @@ skip.  Tolerances: float64 results equal to 1e-12 for B1 (same pivot
 order, another summation order) and trajectories equal with x to 1e-8
 for B2; float32 to 1e-4 / 1e-3 where the pivot orders or working sets
 agree, since float32 roundoff may flip a pivot choice between two column
-norms that tie to ~1e-6.
+norms that tie to ~1e-6.  Over the shapes of ``_SHAPES`` and ``_PANELS``
+(large norms, long columns) B1's float64 tolerance is 1e-10.
 """
 
 import os
@@ -377,6 +378,165 @@ def test_sequence_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
             torch.testing.assert_close(g.cpu(), w, atol=1e-8, rtol=0)
         else:
             assert torch.equal(g.cpu(), w)
+
+
+# (n, general and bound level sizes, simple bounds, instances, iteration cap
+# of the compared calls (0: to the end), forced layout): the bench shape,
+# the test_01 shape, a level of more than 32 rows, a level of 0 rows, one
+# level, an odd n, and the LOD in device memory (forced on a small shape,
+# and by the rule on a shape whose state exceeds a block's shared memory)
+_SHAPES = {
+    "bench": (100, [30, 30, 30, 30], False, 8, 6, None),
+    "test_01": (88, [60, 33, 3, 2, 97], True, 8, 6, None),
+    "wide_level": (20, [40, 6], False, 16, 0, None),
+    "empty_level": (20, [6, 0, 6], False, 16, 0, None),
+    "one_level": (10, [12], False, 16, 0, None),
+    "odd_n": (21, [6, 6, 6, 6], False, 16, 0, None),
+    "lod_in_device_memory": (20, [6, 6, 6, 6], False, 16, 0, False),
+    "too_large_for_shared": (160, [50, 50, 50, 50], False, 4, 3, None),
+}
+
+
+def _shape_problem(device, dtype, shape, **options):
+    """Phase-1 state of a cold solve at one of ``_SHAPES`` and B2's keyword
+    arguments (``_fused_problem`` at any shape)."""
+    n, dims, simple, B, cap, lod_shared = _SHAPES[shape]
+    rng = np.random.default_rng(41)
+    prob = random_inequality_hierarchy(rng, n, dims, equality_fraction=0.1,
+                                       tight_fraction=0.5, simple_bounds=simple)
+    struct = lt.Structure.of(prob)
+    tols = BENCH_TOLS if dtype == torch.float32 else {}
+    params = lt.ParametersLexLSI(max_number_of_factorizations=300, **tols, **options)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)  # noqa: E731
+    noise = 1e-2 * rng.standard_normal((B,) + prob.A.shape)
+    noise[:, :struct.d0] = 0.0
+    A = t(prob.A + noise)
+    lb, ub = t(np.tile(prob.lb, (B, 1))), t(np.tile(prob.ub, (B, 1)))
+    m = prob.n_ctr
+    c, s, ns = _device_initial_activation(
+        A, lb, ub, torch.zeros(B, m, dtype=torch.int32, device=device), struct)
+    st = _initial_state(A, lb, ub, c, s, ns, torch.zeros(B, n, dtype=dtype, device=device),
+                        torch.zeros(B, m, dtype=dtype, device=device), struct, params,
+                        False, False)
+    args = (A, st.lb, st.ub, st.ctr_type, st.stamp, st.next_stamp, st.x, st.v, st.Ax, st.n_fact)
+    return args, active_set_kwargs(struct, params, device), cap, lod_shared
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [False, True], ids=["plain_options", "log_and_cycling"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", list(_SHAPES))
+def test_fused_kernel_shapes_match_plain(cuda_device, shape, dtype, options):  # noqa: F811
+    """B2 against its plain version over the shapes the layouts have to
+    serve, with the log and cycling handling off and on: one call (capped
+    where the plain version would take minutes), then paused by
+    ``iter_cap=1`` and resumed against the uninterrupted call; no input
+    tensor is written."""
+    opts = dict(log_working_set_enabled=True, cycling_handling_enabled=True) if options else {}
+    args, kw, cap, lod_shared = _shape_problem(cuda_device, dtype, shape, **opts)
+    from lexls_tpu_torch.ops.fused import fused_layout
+    lay = fused_layout(args[0].shape[1], args[0].shape[2], len(kw["dims"]), kw["d0"],
+                       max(1, max(kw["dims"])), dtype, lod_shared)
+    assert lay.in_shared == (shape not in ("lod_in_device_memory", "too_large_for_shared")
+                             or (shape == "too_large_for_shared" and dtype == torch.float32))
+    kept = [a.clone() for a in args] + [kw["prio"].clone(), kw["elig"].clone()]
+    got = fused_active_set(*args, iter_cap=cap, lod_shared=lod_shared, **kw)
+    want = fused_active_set_ref(*args, iter_cap=cap, **kw)
+    torch.cuda.synchronize()
+    same = _assert_results_equal(got, want, dtype)
+    if dtype == torch.float64:
+        _assert_log_and_cycling_equal(got, want)
+    else:
+        assert int(same.sum()) >= len(same) // 2
+    assert int(got.it.max()) > 1 and bool((got.n_act + got.n_deact > 0).any())
+
+    got1 = fused_active_set(*args, iter_cap=1, lod_shared=lod_shared, **kw)
+    paused = got1.status == -1
+    assert bool(paused.any())
+    nf = torch.where(paused, got1.n_fact, kw["max_fact"]).to(torch.int32)
+    resume = (args[0], got1.lb, got1.ub, got1.ctr_type, got1.stamp, got1.next_stamp, got1.x,
+              got1.v, got1.Ax, nf, got1.it) + ((got1[19:27], got1[27:31]) if options else ())
+    rcap = cap - 1 if cap else 0
+    got2 = fused_active_set(*resume, iter_cap=rcap, lod_shared=lod_shared, **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        sel = lambda r: type(r)(*(t[paused] for t in r))  # noqa: E731
+        for f in ("status", "it", "ctr_type", "stamp", "n_fact", "posf", "ranks"):
+            assert torch.equal(getattr(got2, f)[paused], getattr(got, f)[paused]), f
+        torch.testing.assert_close(got2.x[paused], got.x[paused], atol=1e-10, rtol=0)
+        if options:
+            _assert_log_and_cycling_equal(sel(got2), sel(got))
+    for before, after in zip(kept, list(args) + [kw["prio"], kw["elig"]]):
+        assert torch.equal(before, after)
+    for a in got[:17] + ((got.lb, got.ub) if options else ()):
+        assert all(a.data_ptr() != b.data_ptr() for b in args)
+
+
+# (dim, n, forced layout): the bench level, more than 32 rows, no row, an
+# odd n, the block in device memory (forced, and by the rule)
+_PANELS = {
+    "bench": (30, 100, None),
+    "wide_level": (40, 20, None),
+    "empty_level": (0, 21, None),
+    "odd_n": (12, 21, None),
+    "block_in_device_memory": (12, 20, False),
+    "too_large_for_shared": (200, 180, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", list(_PANELS))
+def test_panel_kernel_shapes_match_plain(cuda_device, shape, dtype):  # noqa: F811
+    """B1 against its plain version over the shapes its layouts have to
+    serve, starting from a permutation and a column index that an earlier
+    level left; no input tensor is written."""
+    from lexls_tpu_torch.ops.panel_lqr import panel_layout
+    dim, n, blk_shared = _PANELS[shape]
+    B = 8
+    lay = panel_layout(dim, n, dtype, blk_shared)
+    assert lay.in_shared == (shape not in ("block_in_device_memory", "too_large_for_shared")
+                             or (shape == "too_large_for_shared" and dtype == torch.float32))
+    rng = np.random.default_rng(7)
+    blk = rng.standard_normal((B, dim, n + 1))
+    perm = np.stack([rng.permutation(n) for _ in range(B)]).astype(np.int32)
+    t = lambda a, dt=torch.int32: torch.as_tensor(a).to(dt).to(cuda_device)  # noqa: E731
+    col_at = t(perm)
+    pos = torch.empty_like(col_at).scatter_(
+        1, col_at.long(), torch.arange(n, dtype=torch.int32, device=cuda_device).expand(B, n))
+    ci = 3  # the columns at positions below ci are never chosen
+    args = (t(blk, dtype), pos, col_at, torch.full((B,), ci, dtype=torch.int32,
+                                                   device=cuda_device),
+            t(rng.integers(0, 5, (B, n))))
+    kept = [a.clone() for a in args]
+    got = panel_factorize(*args, fr=5, tol=1e-7, blk_shared=blk_shared)
+    want = panel_factorize_ref(*args, fr=5, tol=1e-7)
+    torch.cuda.synchronize()
+    same = (got[1] == want[1]).all(1) & (got[2] == want[2]).all(1) & (got[3] == want[3]) \
+        & (got[4] == want[4]).all(1)
+    if dtype == torch.float64:
+        assert bool(same.all())
+    else:
+        assert int(same.sum()) >= B // 2
+    tol = 1e-10 if dtype == torch.float64 else 1e-3
+    torch.testing.assert_close(got[0][same], want[0][same], atol=tol, rtol=0)
+    torch.testing.assert_close(got[5][same], want[5][same], atol=tol, rtol=0)
+    assert bool((got[3] == ci + min(dim, n - ci)).all())
+    for before, after in zip(kept, args):
+        assert torch.equal(before, after)
+
+
+@pytest.mark.cuda
+def test_a_launch_the_card_refuses_raises(cuda_device):  # noqa: F811
+    """Forcing the LOD into shared memory where it does not fit asks for
+    more dynamic shared memory than a block may have: the wrapper raises,
+    and does not fall back to the other layout."""
+    args, kw, _, _ = _shape_problem(cuda_device, torch.float64, "too_large_for_shared")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_active_set(*args, lod_shared=True, **kw)
+    got = fused_active_set(*args, iter_cap=1, **kw)  # and the card still works
+    torch.cuda.synchronize()
+    assert bool((got.it == 1).all())
 
 
 @pytest.mark.cuda
