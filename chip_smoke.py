@@ -54,7 +54,17 @@ Phases:
      same with them off, and the exact tier's sequence,
      ``solve_sequence_batched_native`` (T=3): every solve PROBLEM_SOLVED,
      per-level residual norms against the fused path's, cold and warm
-     time, B1's launches and its share of the device time.
+     time, B1's launches and its share of the device time;
+ 11. regularization at ``bench_extra.py``'s config 3 (n=24, six
+     rank-deficient levels, factors 0.05): B1 under every regularization
+     type against its plain version (float64, B=64); cold solves in
+     float32 at B=1024 through the exact tier (TIKHONOV) and the tracker
+     (TIKHONOV, TIKHONOV_CG), their solved endpoints checked as fixed
+     points, with cold solves/s, launches, host and device time per pass
+     and the device's busy share; the exact tier on the card against the
+     CPU in float64 (B=128); and ``solve_sequence_batched_native`` with
+     TIKHONOV (T=3), each warm step timed alone.  ``python3 chip_smoke.py
+     regularized`` runs this phase alone.
 
 Prints one JSON line with the per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -86,10 +96,11 @@ SB_N, SB_DIMS, SB_B_PLAIN, SB_CAP, SB_T = 88, (60, 33, 3, 2, 97), 64, 12, 3
 PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
 
 
-def _cuda_ms(fn, reps):
+def _cuda_ms(fn, reps, warmup=True):
     """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events),
-    after one warm-up run."""
-    fn()
+    after one warm-up run unless the caller has just run ``fn``."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -1256,6 +1267,284 @@ def run_new_paths(dev, report):
     report["panel_factorize"]["path2_ms_per_launch"] = b1_ms / max(b1_n, 1)
 
 
+# bench_extra.py config 3 (bench_extra.py:188-218): deep rank-deficient Tikhonov
+REG_N, REG_DIMS, REG_RANKS, REG_FACTOR = 24, (6, 5, 5, 4, 4, 4), (4, 3, 3, 2, 2, 2), 0.05
+REG_B, REG_B_PLAIN, REG_B64, REG_T = 1024, 64, 128, 3
+
+
+def _config3_problem(Bn, dtype, dev, rt=None):
+    """Config 3 of ``bench_extra.py:188-218``: one random hierarchy of six
+    rank-deficient levels over 24 variables, factors 0.05, the f32
+    tolerances, and Bn copies of A perturbed by 1e-3.  Returns (prob,
+    params, A (Bn, m, n), lb, ub, reg) with the bounds broadcast."""
+    import dataclasses
+
+    from lexls_tpu_torch.oracle import random_inequality_hierarchy
+    from lexls_tpu_torch.types import ParametersLexLSI, RegularizationType
+
+    rng = np.random.default_rng(0)
+    prob = random_inequality_hierarchy(rng, REG_N, list(REG_DIMS), ranks=list(REG_RANKS),
+                                       equality_fraction=0.1)
+    prob.regularization = np.full(len(REG_DIMS), REG_FACTOR)
+    params = ParametersLexLSI(regularization_type=RegularizationType.TIKHONOV,
+                              max_number_of_factorizations=64, tol_linear_dependence=1e-7,
+                              tol_wrong_sign_lambda=1e-4, tol_correct_sign_lambda=1e-6,
+                              tol_feasibility=1e-5)
+    if rt is not None:
+        params = dataclasses.replace(params, regularization_type=rt)
+    base = np.stack([prob.A + 1e-3 * rng.standard_normal(prob.A.shape) for _ in range(Bn)])
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(dtype)  # noqa: E731
+    m = prob.n_ctr
+    return (prob, params, t(base).contiguous(), t(prob.lb).expand(Bn, m).contiguous(),
+            t(prob.ub).expand(Bn, m).contiguous(), t(prob.regularization))
+
+
+def check_regularized_panel(dev):
+    """B1 under every regularization type against its plain version:
+    ``factorize_fast_batched`` on the card and on the CPU (B1's plain
+    version), float64, config 3's shape, B=64, each instance's working set
+    a random draw of the rows' types; the nine damped types and TIKHONOV
+    with a variable factor of 5.0.  perm and ranks identical; lod, the
+    null space and TIKHONOV_1's X_mu and residual_mu to 1e-10 relative.
+    The CG types' ten fixed trips do not converge at this shape: their
+    output moves with the rounding of their input (a change of A by 1e-15
+    relative moves the JAX package's own CG x by up to 7e-2), so they are
+    held to 1e-6 or to ten times the plain version's own change under such
+    a perturbation of A, whichever is larger."""
+    import dataclasses
+
+    from lexls_tpu_torch import Structure
+    from lexls_tpu_torch.lexlsi import _masked_general
+    from lexls_tpu_torch.ops import factorize_fast_batched
+    from lexls_tpu_torch.types import RegularizationType as RT
+
+    prob, params, A, lb, ub, reg = _config3_problem(REG_B_PLAIN, torch.float64, dev)
+    struct = Structure.of(prob)
+    ct = torch.as_tensor(np.random.default_rng(3).integers(0, 4, A.shape[:2]), device=dev)
+    Ag, bg, fm, fv = _masked_general(A, lb, ub, ct.to(torch.int32), struct)
+    cases = [(rt, 0.0) for rt in RT if rt != RT.NONE] + [(RT.TIKHONOV, 5.0)]
+    for rt, vf in cases:
+        lp = dataclasses.replace(params, regularization_type=rt,
+                                 variable_regularization_factor=vf).lexlse_parameters()
+        got = factorize_fast_batched(Ag, bg, struct.lexlse_dims, lp, fm, fv, reg)
+        want = factorize_fast_batched(Ag.cpu(), bg.cpu(), struct.lexlse_dims, lp, fm.cpu(),
+                                      fv.cpu(), reg.cpu())
+        same = torch.equal(got.perm.cpu(), want.perm) and torch.equal(got.ranks.cpu(), want.ranks)
+
+        def rel_err(got, want):
+            return max(float((getattr(got, f).cpu() - getattr(want, f)).abs().max()
+                             / (1.0 + getattr(want, f).abs().max()))
+                       for f in ("lod", "null_space", "X_mu", "residual_mu")
+                       if getattr(want, f).numel())
+
+        err, tol, note = rel_err(got, want), 1e-10, ""
+        if rt in (RT.TIKHONOV_CG, RT.RT_NO_Z_CG):
+            nudged = factorize_fast_batched(Ag.cpu() * (1.0 + 1e-15), bg.cpu(),
+                                            struct.lexlse_dims, lp, fm.cpu(), fv.cpu(), reg.cpu())
+            spread = rel_err(nudged, want)
+            tol = max(1e-6, 10.0 * spread)
+            note = f"; the plain version's own change under A * (1 + 1e-15): {spread:.3e}"
+        label = rt.name + (f" variable {vf}" if vf else "")
+        print(f"[B1 regularized f64] {label}: perm and ranks identical {same}; max relative |err| "
+              f"of lod, null space, X_mu, residual_mu {err:.3e} (limit {tol:.3g}){note}")
+        if not same or err > tol:
+            raise SystemExit(f"B1 under {label} disagrees with its plain version")
+
+
+def _fixed_point_check(label, st, A, lb, ub, reg, struct, params):
+    """One exact iteration on the card from every solved endpoint, status
+    reset: it must declare the instance solved with the working set
+    unchanged and v within 1e-3.  An instance whose damped normal
+    equations broke down in float32 (Cholesky of a matrix that rounding
+    left indefinite: NaN, as the JAX package's ``_tikhonov_full`` gives
+    on the same inputs) ends with a non-finite x; such instances are
+    counted, may be at most 1% of the batch, and are left out of the
+    check."""
+    import dataclasses
+
+    from lexls_tpu_torch.lexlsi import _factorize_masked, _masked_general, _verify_with_f
+
+    s = dataclasses.replace(st, status=torch.full_like(st.status, -1))
+    Ag, bg, fm, fv = _masked_general(A, lb, ub, s.ctr_type, struct)
+    f = _factorize_masked(Ag, bg, fm, fv, struct, params, reg)
+    s1 = _verify_with_f(s, A, Ag, f, torch.ones_like(st.status, dtype=torch.bool), struct, params)
+    finite = torch.isfinite(st.x).all(1) & torch.isfinite(st.v).all(1)
+    solved = (st.status == 0) & finite
+    ok = bool((s1.status[solved] == 0).all()) and bool(
+        (s1.ctr_type[solved] == st.ctr_type[solved]).all())
+    dv = float((s1.v - st.v)[solved].abs().amax()) if bool(solved.any()) else 0.0
+    n_bad = int((~finite).sum())
+    print(f"[{label}] fixed-point check of the {int(solved.sum())} solved endpoints: solved again "
+          f"with the working set unchanged {ok}; max |v change| {dv:.3e} (limit 1e-3); "
+          f"non-finite x (damped normal equations broken down): {n_bad} (statuses "
+          f"{st.status[~finite].tolist()})")
+    if not ok or dv > 1e-3 or n_bad > st.x.shape[0] // 100:
+        raise SystemExit(f"{label}: a solved endpoint is not a fixed point, or too many "
+                         "instances broke down")
+
+
+def run_regularized(dev, report):
+    """Config 3 on the card (``bench_extra.py:188-253``, full width): B1
+    under every regularization type against its plain version; cold solves
+    in float32 at B=1024 through the exact tier with TIKHONOV and the
+    tracker with TIKHONOV and TIKHONOV_CG, each driven with the launch
+    counts zeroed just before and read just after, its solved endpoints
+    checked as fixed points and timed (median of 3 calls by CUDA events
+    after the driven one); float64 at B=128 on the card against the CPU; a
+    warm sequence through ``solve_sequence_batched_native`` (T=3), each
+    warm step timed alone.  Last, each path under ``torch.profiler`` with a
+    budget of 4 factorizations (a whole solve is some 10^5 launches, whose
+    trace takes the profiler minutes to digest; the passes are alike, since
+    most instances run to the budget), for the host and device time of a
+    pass, and the exact tier timed once more after the profiles."""
+    import dataclasses
+
+    from lexls_tpu_torch import (Structure, batched_initial_arrays, solve_core_batched,
+                                 solve_core_cold_tracked, solve_sequence_batched_native)
+    from lexls_tpu_torch.ops import fused_active_set, panel_factorize
+    from lexls_tpu_torch.sequence import _device_initial_activation
+    from lexls_tpu_torch.types import RegularizationType as RT
+
+    t_phase = time.perf_counter()
+    check_regularized_panel(dev)
+    p = len(REG_DIMS)
+    paths = {}
+    for key, rt, tracked in (("regularized_exact", RT.TIKHONOV, False),
+                             ("regularized_tracked", RT.TIKHONOV, True),
+                             ("regularized_tracked_cg", RT.TIKHONOV_CG, True)):
+        prob, params, A, lb, ub, reg = _config3_problem(REG_B, torch.float32, dev, rt)
+        struct = Structure.of(prob)
+        init = [a.to(torch.float32) if a.is_floating_point() else a
+                for a in batched_initial_arrays(prob, REG_B, dev)]
+
+        def solve(stats=None, params=params, A=A, lb=lb, ub=ub, reg=reg, struct=struct,
+                  init=init, tracked=tracked):
+            if tracked:
+                return solve_core_cold_tracked(A, lb, ub, *init, struct=struct, params=params,
+                                               reg=reg, stats=stats)[0]
+            return solve_core_batched(A, lb, ub, *init, reg, struct=struct, params=params,
+                                      x_guess_specified=False, v0_specified=False)
+
+        stats = []
+        panel_factorize.launches = fused_active_set.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = solve(stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"panel_factorize": panel_factorize.launches,
+                    "fused_active_set": fused_active_set.launches}
+        for k in report:
+            report[k].setdefault("launches_by_path", {})[key] = launches[k]
+        if launches["panel_factorize"] == 0 or launches["fused_active_set"] != 0 \
+                or st.x.shape != (REG_B, REG_N):
+            raise SystemExit(f"{key}: wrong launches {launches}, or x of the wrong shape")
+        # B1 takes p launches for phase 1 and p for each pass of the exact
+        # tier, the tracker's bootstrap iteration included
+        passes = launches["panel_factorize"] // p - 1
+        trips, handed = stats[0] if stats else (0, 0)
+        counts = torch.bincount(st.status + 1, minlength=4).tolist()
+        print(f"[{key}] config 3, B={REG_B} float32: {wall:.3f} s host wall (first run); "
+              f"status counts {counts} (-1,0,1,2); iterations mean "
+              f"{float(st.it.double().mean()):.2f} max {int(st.it.max())}; launches {launches}; "
+              f"exact-tier passes {passes}" + (f"; tracker trips {trips}, instances handed to "
+                                               f"_exact_tail {handed}/{REG_B}" if tracked else ""))
+        _fixed_point_check(key, st, A, lb, ub, reg, struct, params)
+        ms = _cuda_ms(solve, 3, warmup=False)
+        print(f"[{key}] cold solves/s {REG_B / (ms / 1e3):.1f} ({ms:.3f} ms a solve, median of 3 "
+              f"by CUDA events; {ms / (passes + trips):.3f} ms a pass or trip)")
+        paths[key] = (solve, params, st, ms)
+    same = paths["regularized_exact"][2].status == paths["regularized_tracked"][2].status
+    print(f"[regularized] statuses of the tracked path (TIKHONOV) agreeing with the exact tier's: "
+          f"{int(same.sum())}/{REG_B}")
+
+    # float64: the exact tier on the card against the same on the CPU
+    prob, params, A, lb, ub, reg = _config3_problem(REG_B64, torch.float64, dev)
+    struct = Structure.of(prob)
+    init = batched_initial_arrays(prob, REG_B64, dev)
+    kw = dict(struct=struct, params=params, x_guess_specified=False, v0_specified=False)
+    card = solve_core_batched(A, lb, ub, *init, reg, **kw)
+    cpu = solve_core_batched(*(t.cpu() for t in (A, lb, ub, *init, reg)), **kw)
+    same = all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+               for f in ("status", "it", "ctr_type", "n_act", "n_deact"))
+    xerr = float((card.x.cpu() - cpu.x).abs().max())
+    trk, _ = solve_core_cold_tracked(A, lb, ub, *init, struct=struct, params=params, reg=reg)
+    print(f"[regularized f64] B={REG_B64}: exact tier on the card against the CPU: statuses, "
+          f"iterations and working sets identical {same}; max |x err| {xerr:.3e} (target 1e-10); "
+          f"status counts {torch.bincount(cpu.status + 1, minlength=4).tolist()}; tracked path "
+          f"statuses agreeing with the exact tier's {int((trk.status == card.status).sum())}/"
+          f"{REG_B64}")
+    if not same or xerr > 1e-8:
+        raise SystemExit("regularized exact tier: the card and the CPU disagree")
+
+    # the warm sequence, TIKHONOV, float32: each warm step timed alone
+    prob, params, A, lb, ub, reg = _config3_problem(REG_B, torch.float32, dev)
+    struct = Structure.of(prob)
+    m = prob.n_ctr
+    drifts = torch.as_tensor(1e-3 * np.cumsum(np.random.default_rng(1).standard_normal(
+        (REG_T,) + prob.A.shape), axis=0), device=dev).to(torch.float32)
+    A_seq = (A[:, None] + drifts[None]).contiguous()
+    lb_seq, ub_seq = lb[:, None].expand(-1, REG_T, -1), ub[:, None].expand(-1, REG_T, -1)
+    panel_factorize.launches = fused_active_set.launches = 0
+    x, _, status, it, _, ct = solve_sequence_batched_native(A_seq, lb_seq, ub_seq, reg,
+                                                            struct=struct, params=params)
+    b1 = panel_factorize.launches
+    for k in report:
+        report[k]["launches_by_path"]["regularized_native"] = (
+            b1 if k == "panel_factorize" else fused_active_set.launches)
+    finite = torch.isfinite(x).all(2)
+    if int((~finite).sum()) > finite.numel() // 100 or b1 == 0:
+        raise SystemExit("regularized sequence: x not finite in over 1% of the solves, or B1 "
+                         "not launched")
+    z = torch.zeros(REG_B, m, dtype=torch.float32, device=dev)
+
+    def warm_step(t):
+        A_t = A_seq[:, t].contiguous()
+        c, s_, ns = _device_initial_activation(A_t, lb, ub, ct[:, t - 1], struct)
+        return solve_core_batched(A_t, lb, ub, c, s_, ns, x[:, t - 1].contiguous(), z, reg,
+                                  struct=struct, params=params, x_guess_specified=True,
+                                  v0_specified=False)
+
+    warm = [_cuda_ms(lambda t=t: warm_step(t), 3, warmup=False) for t in range(1, REG_T)]
+    print(f"[regularized sequence] T={REG_T}, B={REG_B} float32: status counts per step "
+          f"{[torch.bincount(status[:, t] + 1, minlength=4).tolist() for t in range(REG_T)]}; "
+          f"iterations per step, mean {[round(float(c), 2) for c in it.double().mean(0)]}, max "
+          f"{it.amax(0).tolist()}; non-finite x per step {(~finite).sum(0).tolist()}; B1 "
+          f"launches {b1}; warm steps alone "
+          f"{[round(w, 3) for w in warm]} ms (median of 3 each): warm solves/s "
+          f"{REG_B / (statistics.mean(warm) / 1e3):.1f}")
+
+    # the profiles, last: a pass's host and device time and launches; the
+    # exact tier without regularization beside them gives the regularizer's
+    # share of a pass (the difference, over the p levels)
+    paths["exact_unregularized"] = (paths["regularized_exact"][0], dataclasses.replace(
+        paths["regularized_exact"][1], regularization_type=RT.NONE), None, None)
+    per_pass = {}
+    for key, (solve, params, _, _) in paths.items():
+        short = dataclasses.replace(params, max_number_of_factorizations=4)
+        stats = []
+        panel_factorize.launches = 0
+        rows, wall_ms = _profile(lambda: solve(stats, params=short))
+        steps = panel_factorize.launches // p - 1 + (stats[0][0] if stats else 0)
+        dev_ms = sum(r[0] for r in rows) / 1e3
+        per_pass[key] = (wall_ms / steps, dev_ms / steps, sum(r[1] for r in rows) / steps)
+        print(f"[profile {key}] budget 4, {steps} passes or trips: a pass or trip takes host "
+              f"{wall_ms / steps:.3f} ms, device {dev_ms / steps:.3f} ms in "
+              f"{sum(r[1] for r in rows) / steps:.1f} kernel launches "
+              f"({panel_factorize.launches / steps:.2f} of B1 by its count); device busy "
+              f"{100 * dev_ms / wall_ms:.1f}% of the profiled wall")
+        for us, count, name in rows[:3]:
+            print(f"  {us / 1e3:10.3f} ms  {count:6d} calls  {name[:90]}")
+    reg_level = [(a - b) / p for a, b in zip(per_pass["regularized_exact"],
+                                             per_pass["exact_unregularized"])]
+    print(f"[profile regularizer] TIKHONOV's damping and null space, per level and pass: host "
+          f"{reg_level[0]:.3f} ms, device {reg_level[1]:.4f} ms, {reg_level[2]:.1f} launches")
+    solve, _, _, ms = paths["regularized_exact"]
+    print(f"[regularized_exact] one more solve after the profiles: "
+          f"{_cuda_ms(solve, 1, warmup=False):.3f} ms (before them: {ms:.3f} ms)")
+    print(f"[regularized] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU",
@@ -1303,6 +1592,7 @@ def main():
         "test01_cycling": lambda: measure_test01_cycling(dev),
         "main_paths": lambda: run_main_paths(dev, report),
         "new_paths": lambda: run_new_paths(dev, report),
+        "regularized": lambda: run_regularized(dev, report),
     }
     # with phase names as arguments, only those run and no result is printed
     # (for work on one kernel); with none, as the check runs it, all do

@@ -5,7 +5,8 @@ with the level-panel factorization (kernel B1) and the whole active-set
 loop (kernel B2) as hand-written CUDA kernels, over them the
 carried-factorization tracker (``tracked=True``), and beside them the
 natively batched exact tier, which factorizes through B1 in every
-iteration.  It
+iteration and runs every regularization type (the tracker TIKHONOV and
+TIKHONOV_CG).  It
 imports torch and NumPy only; ``lexls_tpu`` (JAX) is the reference that
 the tests hold it against.
 """
@@ -30,7 +31,7 @@ from .lexlsi import (
     solve_core_batched,
     solve_core_fused,
 )
-from .parallel import batched_initial_arrays
+from .parallel import batched_initial_arrays, solve_batched
 from .sequence import solve_sequence_batched_fused, solve_sequence_batched_native
 from .tracker import Carried, bootstrap_carried, solve_core_cold_tracked, solve_core_tracked
 
@@ -53,6 +54,7 @@ __all__ = [
     "solve_core_batched",
     "solve_core_cold_tracked",
     "solve_core_fused",
+    "solve_batched",
     "solve_core_tracked",
     "solve_sequence_batched_fused",
     "solve_sequence_batched_native",

@@ -10,7 +10,8 @@ whole-solve tier (``solve_core_fused``/``_fused_tail``,
 ``lexlsi.py:844-1050``), whose active-set loop is kernel B2
 (:mod:`lexls_tpu_torch.ops.fused`), and the natively batched exact tier
 (``solve_core_batched``, ``lexlsi.py:570-834``), which factorizes every
-iteration through kernel B1 (:mod:`lexls_tpu_torch.ops.panel_lqr`).
+iteration through kernel B1 (:mod:`lexls_tpu_torch.ops.panel_lqr`) and
+runs every regularization type (:mod:`lexls_tpu_torch.regularization`).
 
 Every tensor carries a leading batch axis B in place of the JAX
 package's ``vmap``.  The working set is data: a per-constraint int32
@@ -210,6 +211,26 @@ def _masked_general(A, lb, ub, ctr_type, struct: Structure):
     return A[:, d0:] * actg[:, :, None], rhs[:, d0:] * actg, fixed_mask, fixed_val
 
 
+def _factorize_masked(Ag, bg, fixed_mask, fixed_val, struct: Structure,
+                      params: ParametersLexLSI, reg):
+    """The l-QR of the masked subproblem through kernel B1
+    (``lexlsi.py:255-272``): ``reg`` holds a factor for every level, the
+    simple-bounds level included, which takes none."""
+    from .ops import factorize_fast_batched
+
+    reg_g = None if reg is None else (reg[1:] if struct.simple_bounds else reg)
+    return factorize_fast_batched(Ag, bg, struct.lexlse_dims, params.lexlse_parameters(),
+                                  fixed_mask=fixed_mask, fixed_val=fixed_val, reg_factors=reg_g)
+
+
+def _reg_factors(reg, params: ParametersLexLSI, A):
+    """The per-level factors on ``A``'s device and in its dtype, or None
+    where the type is NONE (the factorization then reads none)."""
+    if reg is None or params.regularization_type == RegularizationType.NONE:
+        return None
+    return torch.as_tensor(reg).to(A.device, A.dtype)
+
+
 def _form_step(A, lb, ub, ctr_type, Ax, v, dx):
     """``objective.h:288-338``: dv anchored to the rhs to kill drift;
     ``Ax`` is the solver's cached value."""
@@ -280,12 +301,12 @@ def _initialize_v0(ctr_type, Ax, lb, ub, params: ParametersLexLSI):
 
 def _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
                    struct: Structure, params: ParametersLexLSI,
-                   x_guess_specified: bool, v0_specified: bool) -> LexLSIState:
+                   x_guess_specified: bool, v0_specified: bool, reg=None) -> LexLSIState:
     """Phase 1 (``lexlsi.h:816-869``) without ``use_phase1_v0``: initial x
-    (a cold factorization + basic solve, through kernel B1, unless a guess
-    is given), v, working set and step."""
+    (a cold factorization + basic solve, through kernel B1 and damped by
+    ``reg`` under regularization, unless a guess is given), v, working set
+    and step."""
     from . import lexlse
-    from .ops import factorize_fast_batched
 
     B, m, n = A.shape
     dev = A.device
@@ -298,9 +319,7 @@ def _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
         x = x0
     else:
         Ag, bg, fixed_mask, fixed_val = _masked_general(A, lb, ub, ctr_type, struct)
-        f0 = factorize_fast_batched(Ag, bg, struct.lexlse_dims, params.lexlse_parameters(),
-                                    fixed_mask=fixed_mask, fixed_val=fixed_val)
-        x = lexlse.solve(f0)
+        x = lexlse.solve(_factorize_masked(Ag, bg, fixed_mask, fixed_val, struct, params, reg))
     Ax = _matvec(A, x)
     if v0_specified:
         v = v0
@@ -524,9 +543,13 @@ def _cycling_step(cyc, lb, ub, status, log_cycling, log_len, alive, blocking, do
 # ---------------------------------------------------------------------------
 
 
-def _check_supported(params: ParametersLexLSI, name: str) -> None:
-    if params.regularization_type != RegularizationType.NONE:
-        raise LexLSError(f"{name}: regularization is not ported")
+def _check_supported(params: ParametersLexLSI, name: str, regularization: bool) -> None:
+    """Refuse what a tier does not run: trace and ``use_phase1_v0`` (not
+    ported), and regularization where ``regularization`` is False (kernel
+    B2 has none, as the JAX package's kernel, ``lexlsi.py:862``)."""
+    if not regularization and params.regularization_type != RegularizationType.NONE:
+        raise LexLSError(f"{name}: regularization runs on the exact tier only "
+                         "(solve_core_batched)")
     if params.trace_enabled or params.use_phase1_v0:
         raise LexLSError(f"{name}: trace/use_phase1_v0 are not ported")
 
@@ -539,12 +562,12 @@ def solve_core_fused(
     """Whole-solve tier (``lexlsi.py:844-891``): phase 1 in torch, then
     the entire active-set loop in kernel B2, the working-set log and
     cycling handling included.  All arrays carry a leading batch axis
-    except ``reg`` (per-level regularization factors, unused since
-    regularization is not ported).  With ``return_factors`` returns
+    except ``reg`` (per-level regularization factors, unused: the kernel
+    has no regularization).  With ``return_factors`` returns
     ``(state, (rpad, posf, ranks))``, the final factorization that
     :func:`lexls_tpu_torch.tracker.bootstrap_carried` takes.  Raises
     ``LexLSError`` for options the port does not support."""
-    _check_supported(params, "solve_core_fused")
+    _check_supported(params, "solve_core_fused", regularization=False)
     full_fp32()
     A, lb, ub = A.contiguous(), lb.contiguous(), ub.contiguous()
     s = _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
@@ -620,13 +643,18 @@ def _fused_tail(A, s: LexLSIState, it0=None, *, struct: Structure, params: Param
 
 
 def _lambda_sweep(f, Ag, ctr_type, stamp, struct: Structure, params: ParametersLexLSI):
-    """Find an active constraint to remove (``lexlsi.py:325-398`` without
-    regularization): every objective's multipliers from the factorization
-    in one transposed pass, then the removal selection.  Returns (found,
-    row (-1 where none), selected value)."""
+    """Find an active constraint to remove (``lexlsi.py:325-398``): every
+    objective's multipliers from the factorization, in one transposed pass
+    or, under TIKHONOV_1, one regularized objective at a time
+    (``lexlse.objective_sensitivity_regularized``), then the removal
+    selection.  Returns (found, row (-1 where none), selected value)."""
     from . import lexlse
 
-    lam_all = lexlse.sensitivities_all(f)
+    if params.regularization_type == RegularizationType.TIKHONOV_1:
+        lam_all = torch.stack([lexlse.objective_sensitivity_regularized(f, j)
+                               for j in range(len(f.dims))], 1)
+    else:
+        lam_all = lexlse.sensitivities_all(f)
     return _select_removal(lam_all, ctr_type, stamp, Ag, f.fixed_mask, struct, params)
 
 
@@ -700,30 +728,38 @@ def solve_core_batched(
     x_guess_specified: bool, v0_specified: bool,
 ) -> LexLSIState:
     """Natively batched whole solver, the exact tier
-    (``lexlsi.py:775-834``): phase 1, then a loop whose every pass builds
-    the masked subproblem of each instance, factorizes it through kernel
-    B1 (one launch per level; its plain version for CPU tensors) and runs
-    :func:`_verify_with_f`.  Terminated instances are frozen, and the loop
-    reads ``alive.any()`` once per pass.  All arrays carry a leading batch
-    axis except ``reg`` (unused: regularization is not ported).  Honours
-    both removal strategies, simple bounds, the working-set log and
-    cycling handling; raises ``LexLSError`` for regularization, trace and
-    ``use_phase1_v0``."""
-    from .ops import factorize_fast_batched
-
-    _check_supported(params, "solve_core_batched")
+    (``lexlsi.py:775-834``): phase 1, then :func:`_exact_tail`.  All
+    arrays carry a leading batch axis except ``reg``, the per-level
+    regularization factors (p,), shared by the batch, read under a
+    regularization type other than NONE.  Honours both removal strategies,
+    simple bounds, every regularization type with the variable factor, the
+    working-set log and cycling handling; raises ``LexLSError`` for trace
+    and ``use_phase1_v0``."""
+    _check_supported(params, "solve_core_batched", regularization=True)
     full_fp32()
     A, lb, ub = A.contiguous(), lb.contiguous(), ub.contiguous()
+    reg = _reg_factors(reg, params, A)
     s = _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
-                       struct, params, x_guess_specified, v0_specified)
+                       struct, params, x_guess_specified, v0_specified, reg=reg)
+    return _exact_tail(A, s, reg, struct, params)
+
+
+def _exact_tail(A, s: LexLSIState, reg, struct: Structure, params: ParametersLexLSI):
+    """The exact tier's active-set loop from a phase-1 or mid-solve state
+    ``s`` (``lexlsi.py:800-834``, ``tracker.py:1058-1089``): every pass
+    builds the masked subproblem of each instance, factorizes it through
+    kernel B1 (one launch per level; its plain version for CPU tensors),
+    damped by ``reg`` (device tensor or None), and runs
+    :func:`_verify_with_f`.  Terminated instances are frozen, and the loop
+    reads ``alive.any()`` once per pass.  Instances still UNKNOWN at the
+    end ran out of factorizations."""
     max_fact = params.max_number_of_factorizations
     while True:
         alive = _instance_alive(s, max_fact)
         if not bool(alive.any()):
             break
         Ag, bg, fixed_mask, fixed_val = _masked_general(A, s.lb, s.ub, s.ctr_type, struct)
-        f = factorize_fast_batched(Ag, bg, struct.lexlse_dims, params.lexlse_parameters(),
-                                   fixed_mask=fixed_mask, fixed_val=fixed_val)
+        f = _factorize_masked(Ag, bg, fixed_mask, fixed_val, struct, params, reg)
         s = _verify_with_f(s, A, Ag, f, alive, struct, params)
     status = torch.where(s.status == int(TerminationStatus.UNKNOWN),
                          int(TerminationStatus.MAX_NUMBER_OF_FACTORIZATIONS_EXCEEDED),

@@ -336,25 +336,32 @@ def factorize_fast_batched(
     params: ParametersLexLSE = ParametersLexLSE(),
     fixed_mask: Optional[torch.Tensor] = None,
     fixed_val: Optional[torch.Tensor] = None,
+    reg_factors: Optional[torch.Tensor] = None,
 ):
-    """Batched l-QR (``pallas_lqr.py:302-387``): the level panels run
-    through :func:`panel_factorize` (kernel B1), the inter-level Gauss
-    elimination and the final physicalization as torch ops.
+    """Batched l-QR (``pallas_lqr.py:302-387``, and the regularized branch
+    of ``lexlse.py:514-808``): the level panels run through
+    :func:`panel_factorize` (kernel B1), the regularization of each level,
+    the inter-level Gauss elimination and the final physicalization as
+    torch ops.
 
     ``A`` is (B, m, n), ``b`` (B, m).  ``fixed_mask`` (B, n) bool marks the
     variables held at ``fixed_val`` (simple bounds): their columns are
     zeroed and their values folded into the rhs (``lexlse.h:132-156``).
-    Returns a batched :class:`lexls_tpu_torch.lexlse.LexQR`.
-    Regularization is not ported.
+    With a regularization type other than NONE, each level's rhs segment
+    is damped between its B1 launch and its Gauss elimination, with the
+    per-level factors ``reg_factors`` ((p,) shared or (B, p); zero where
+    None), and the null-space basis is accumulated; TIKHONOV_1 also
+    carries each objective's damped solution and residuals.  Returns a
+    batched :class:`lexls_tpu_torch.lexlse.LexQR`.
     """
     from ..lexlse import LexQR
     from ..lexlsi import full_fp32
+    from .. import regularization as reg
 
-    if params.regularization_type != RegularizationType.NONE:
-        raise LexLSError("factorize_fast_batched does not support regularization")
     full_fp32()
     B, m, n = A.shape
     dtype, dev = A.dtype, A.device
+    p = len(dims)
     if sum(dims) != m:
         raise LexLSError(f"dims {dims} do not sum to the row count {m}")
 
@@ -372,6 +379,16 @@ def factorize_fast_batched(
     col_index = torch.zeros(B, dtype=torch.int32, device=dev)
     tol = float(params.tol_linear_dependence)
 
+    rt = params.regularization_type
+    regularize = rt != RegularizationType.NONE
+    track_mu = rt == RegularizationType.TIKHONOV_1
+    null_space = torch.zeros(B, n, n + 1, dtype=dtype, device=dev)
+    if regularize:
+        reg_factors = (torch.zeros(B, p, dtype=dtype, device=dev) if reg_factors is None
+                       else reg_factors.to(dev, dtype).expand(B, p))
+    X_mu = torch.zeros((B, n, p) if track_mu else (B, 0, 0), dtype=dtype, device=dev)
+    residual_mu = torch.zeros(B, m if track_mu else 0, dtype=dtype, device=dev)
+
     ranks, first_cols = [], []
     fr = 0
     for obj, dim in enumerate(dims):
@@ -380,6 +397,10 @@ def factorize_fast_batched(
         if dim == 0:
             ranks.append(torch.zeros(B, dtype=torch.int32, device=dev))
             continue
+        K = min(dim, n)
+        if track_mu:
+            # the level's deflated rhs before its reflections (lexlse.h:188-191)
+            residual_mu[:, fr:fr + dim] = lod[:, fr:fr + dim, n]
         block = lod[:, fr:fr + dim, :].contiguous()
         block, pos, col_at, col_index, rank_row, hh_lvl = panel_factorize(
             block, pos, col_at, col_index, rank_row, fr=fr, tol=tol)
@@ -387,16 +408,90 @@ def factorize_fast_batched(
         hh[:, fr:fr + dim] = hh_lvl
         rank = col_index - first_col
         ranks.append(rank)
-        if obj < len(dims) - 1:
+        if regularize:
+            # the level's rows and the accumulated null space, which is kept
+            # in PHYSICAL columns (later pivoting reorders the remaining
+            # positions), gathered into position space; only the rhs column,
+            # which both layouts share, is written back
+            factor = reg_factors[:, obj]
+            level_rows = _gather_cols(lod[:, fr:fr + K], col_at)
+            if params.variable_regularization_factor != 0.0:
+                factor = reg.variable_factor(level_rows, params.variable_regularization_factor,
+                                             first_col, rank, n, factor)
+            ns_pos = _gather_cols(null_space, col_at)
+            if track_mu:
+                X_mu, residual_mu, rhs_reg = _track_mu(
+                    lod, hh, level_rows, ns_pos, X_mu, residual_mu, dims, first_cols, ranks,
+                    obj, fr, col_at, pos, factor)
+                lv_reg = torch.cat([level_rows[:, :, :n], rhs_reg[:, :, None]], 2)
+                ns_pos = reg._accumulate_nullspace(lv_reg, ns_pos, first_col, rank, col_index, n)
+            else:
+                rhs_reg, ns_pos = reg.apply_level_regularization(
+                    params, level_rows, ns_pos, first_col, rank, col_index, factor, n)
+            lod[:, fr:fr + K, n] = rhs_reg
+            null_space = _gather_cols(ns_pos, pos)
+        if obj < p - 1:
             lod = _gauss_level(lod, pos, col_at, first_col, col_index, rank,
-                               fr=fr, dim=dim, K=min(dim, n))
+                               fr=fr, dim=dim, K=K)
         fr += dim
 
     # physicalize: position q holds column col_at[q]
-    lod_phys = torch.cat(
-        [lod[:, :, :n].gather(2, col_at.long()[:, None, :].expand(B, m, n)), lod[:, :, n:]], 2)
+    lod_phys = _gather_cols(lod, col_at)
+    if regularize:
+        null_space = _gather_cols(null_space, col_at)
     return LexQR(
         lod=lod_phys, hh=hh, perm=col_at, rank_row=rank_row,
         ranks=torch.stack(ranks, 1), first_col=torch.stack(first_cols, 1),
         total_rank=col_index, fixed_mask=fixed_mask, fixed_val=fixed_val,
+        null_space=null_space, X_mu=X_mu, residual_mu=residual_mu,
+        reg_factors=reg_factors if track_mu else A.new_zeros(B, 0),
         dims=tuple(dims), n_var=n)
+
+
+def _gather_cols(M, idx):
+    """(B, r, n+1) with the first n columns gathered through ``idx``
+    (B, n), the rhs column kept: ``col_at`` takes physical columns to
+    positions, ``pos`` takes them back."""
+    B, r, np1 = M.shape
+    return torch.cat([M[:, :, :np1 - 1].gather(2, idx.long()[:, None, :].expand(B, r, np1 - 1)),
+                      M[:, :, np1 - 1:]], 2)
+
+
+def _track_mu(lod, hh, level_rows, ns_pos, X_mu, residual_mu, dims, first_cols, ranks, obj,
+              fr, col_at, pos, factor):
+    """TIKHONOV_1's regularized-multiplier bookkeeping of one level
+    (``lexlse.py:708-749``, reference ``regularize_tikhonov_1_test``,
+    ``lexlse.h:1774-1886``): the damped rhs, the damped residual through
+    the level's WY factors, and the objective's damped solution completed
+    through the levels above.  Returns (X_mu, residual_mu, rhs (B, K))."""
+    from .. import regularization as reg
+    from ..lexlse import _apply_wy, _intermediate_x, _wy_raw
+
+    n = pos.shape[1]
+    dim = dims[obj]
+    K = min(dim, n)
+    dev = lod.device
+    first_col, rank = first_cols[obj], ranks[obj]
+    do_reg = ((factor != 0.0) & (rank > 0))[:, None]
+    new_rhs, y_mu = reg._tikhonov_full(level_rows, ns_pos, first_col, rank, factor, n,
+                                       return_y=True)
+    rhs_reg = torch.where(do_reg & (torch.arange(K, device=dev) < rank[:, None]), new_rhs,
+                          level_rows[:, :, n])
+    # damped residual: Q [rhs head; 0] less the deflated rhs (lexlse.h:1846-1855),
+    # the pivot columns gathered through col_at
+    wy_cols = col_at.gather(1, (first_col[:, None] + torch.arange(K, device=dev)).clamp(0, n - 1)
+                            .long())
+    seg_in = torch.cat([rhs_reg, lod[:, fr + K:fr + dim, n]], 1)
+    seg_in = torch.where(torch.arange(dim, device=dev) < rank[:, None], seg_in, 0.0)
+    rw = _apply_wy(*_wy_raw(lod, hh, fr, dim, wy_cols), seg_in)
+    old = residual_mu[:, fr:fr + dim]
+    residual_mu = torch.cat([residual_mu[:, :fr], torch.where(do_reg, rw - old, old),
+                             residual_mu[:, fr + dim:]], 1)
+    # the objective's damped solution, completed through the levels above
+    # (get_intermediate_x, lexlse.h:2010), then positions -> variables
+    X_pos = torch.where(torch.arange(n, device=dev) >= first_col[:, None], y_mu, 0.0)
+    X_pos = _intermediate_x(_gather_cols(lod[:, :fr], col_at), dims, first_cols, ranks, obj,
+                            first_col, X_pos, n)
+    X_mu = X_mu.clone()
+    X_mu[:, :, obj] = torch.where(do_reg, X_pos.gather(1, pos.long()), X_mu[:, :, obj])
+    return X_mu, residual_mu, rhs_reg

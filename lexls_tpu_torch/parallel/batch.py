@@ -1,16 +1,17 @@
-"""Batched solving: the cold batch entry's initial arrays.
+"""Batched solving: the cold batch entry's initial arrays and
+``solve_batched``.
 
-Counterpart of ``lexls_tpu/parallel/batch.py:26-39``.  The batched
-solvers themselves are :func:`lexls_tpu_torch.solve_core_batched` and
-:func:`lexls_tpu_torch.solve_core_fused`: every tensor of the port carries
-its batch axis, so there is no ``vmap`` wrapper to port.
+Counterpart of ``lexls_tpu/parallel/batch.py:26-61``.  Every tensor of
+the port carries its batch axis, so ``solve_batched``, the JAX package's
+``vmap`` of its single-instance solver, is the exact tier itself.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..lexlsi import initial_activation
+from ..lexlsi import LexLSIState, Structure, initial_activation, solve_core_batched
+from ..types import ParametersLexLSI
 
 
 def batched_initial_arrays(prob, batch: int, device):
@@ -28,3 +29,16 @@ def batched_initial_arrays(prob, batch: int, device):
         torch.zeros(batch, n, dtype=torch.float64, device=device),
         torch.zeros(batch, m, dtype=torch.float64, device=device),
     )
+
+
+def solve_batched(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, reg,
+                  struct: Structure, params: ParametersLexLSI,
+                  x_guess_specified: bool = False, v0_specified: bool = False) -> LexLSIState:
+    """The whole solver over a batch (``parallel/batch.py:42-61``): every
+    array carries a leading batch axis except ``reg``, the per-level
+    regularization factors shared by the batch.  Runs the exact tier,
+    :func:`lexls_tpu_torch.solve_core_batched`, every regularization type
+    included."""
+    return solve_core_batched(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, reg,
+                              struct=struct, params=params, x_guess_specified=x_guess_specified,
+                              v0_specified=v0_specified)

@@ -85,7 +85,8 @@ def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
     float64), ``loop_cap`` and ``trip1_noext`` go to
     :func:`lexls_tpu_torch.tracker.solve_core_tracked`.  ``stats``, when
     given, receives one ``(trips, instances handed to the kernel)`` tuple
-    per tracked step.
+    per tracked step.  Regularization raises on both paths: the kernel has
+    none, and ``reg`` does not reach the tracker (``sequence.py:217-230``).
     """
     from . import tracker as trk
 
@@ -112,8 +113,9 @@ def solve_sequence_batched_native(A_seq, lb_seq, ub_seq, reg, struct: Structure,
                                   params: ParametersLexLSI):
     """Batched warm-started sequences through the natively batched exact
     tier (:func:`lexls_tpu_torch.solve_core_batched`, kernel B1 in every
-    iteration; ``sequence.py:117-165``).  ``A_seq`` is (B, T, m, n); same
-    outputs as :func:`solve_sequence_batched_fused`."""
+    iteration; ``sequence.py:117-165``), every regularization type with
+    the factors ``reg``.  ``A_seq`` is (B, T, m, n); same outputs as
+    :func:`solve_sequence_batched_fused`."""
     def step(t, A, lb, ub, c, s, ns, x, v0):
         return solve_core_batched(A, lb, ub, c, s, ns, x, v0, reg, struct=struct, params=params,
                                   x_guess_specified=t > 0, v0_specified=False)

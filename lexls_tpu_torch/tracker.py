@@ -1,6 +1,7 @@
 """Cross-solve warm-start tracker: the carried factorization.
 
-Counterpart of ``lexls_tpu/tracker.py`` for regularization NONE.
+Counterpart of ``lexls_tpu/tracker.py``, for regularization NONE,
+TIKHONOV and TIKHONOV_CG.
 Consecutive problems of a warm-started sequence differ by a small drift,
 so iteration 0 of solve t+1 factorizes almost the same matrix as the last
 iteration of solve t.  Instead of rebuilding the column-pivoted l-QR (the
@@ -17,7 +18,8 @@ the CARRIED pivot order:
 * an instance whose carry is accepted takes one reference active-set step
   per trip; one whose carry is rejected (or that is still alive when
   ``loop_cap`` trips are done) continues in kernel B2 from its current
-  state, through the per-instance ``it0`` handover.
+  state, through the per-instance ``it0`` handover; under regularization
+  (which the kernel does not run) in the exact tier instead.
 
 The JAX package's ``lax.while_loop`` over trips is a Python loop here
 whose condition reads ``alive.any()`` on the host: one synchronisation per
@@ -40,16 +42,22 @@ from .lexlsi import (
     LexLSIState,
     Structure,
     _check_blocking,
+    _exact_tail,
+    _factorize_masked,
     _form_step,
     _fused_tail,
     _initial_state,
+    _instance_alive,
     _masked_general,
+    _reg_factors,
     _select_removal,
+    _verify_with_f,
     active_set_kwargs,
     full_fp32,
 )
 from .ops.fused import INT_MAX, _kmax
 from .ops.tri import tri_inv_upper
+from .regularization import _masked_chol_solve, cgls_tikhonov
 from .types import CtrType, LexLSError, ParametersLexLSI, RegularizationType, TerminationStatus
 
 _UNKNOWN = int(TerminationStatus.UNKNOWN)
@@ -96,6 +104,32 @@ def bootstrap_carried(factors: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]) 
     r_safe = torch.where(live2, torch.triu(rpad), eye)
     rinv = torch.where(live2, tri_inv_upper(r_safe), 0.0)
     return Carried(rinv=rinv, pos=pos, ranks=ranks)
+
+
+def carried_from_lexqr(f, struct: Structure) -> Carried:
+    """The carried state from a batched l-QR (``tracker.py:110-147``): the
+    per-level R blocks read from the physicalized LOD (column q holds
+    pivot slot q), inverted.  Used by the regularized cold bootstrap,
+    whose first iteration runs on the exact tier."""
+    n = struct.n_var
+    B = f.lod.shape[0]
+    K = kmax_of(struct)
+    dev, dtype = f.lod.device, f.lod.dtype
+    iota_k = torch.arange(K, device=dev)
+    rpads = []
+    fr = 0
+    for k, dim in enumerate(struct.lexlse_dims):
+        rp = torch.zeros(B, K, K, dtype=dtype, device=dev)
+        Kl = min(dim, n)
+        if Kl:
+            cols = (f.first_col[:, k, None] + iota_k).clamp(max=n - 1).long()
+            rows = f.lod[:, fr:fr + Kl, :n].gather(2, cols[:, None, :].expand(B, Kl, K))
+            rp[:, :Kl] = torch.where((iota_k < f.ranks[:, k, None])[:, None, :], rows, 0.0)
+        rpads.append(rp)
+        fr += dim
+    iota_n = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n)
+    pos = torch.zeros(B, n, dtype=torch.int32, device=dev).scatter(1, f.perm.long(), iota_n)
+    return bootstrap_carried((torch.stack(rpads, 1), pos, f.ranks))
 
 
 def _orthonormalize_z(G, live2, passes: int, us=()):
@@ -226,12 +260,61 @@ class _Level(NamedTuple):
     lam_floor: torch.Tensor
 
 
+def _damp_level(W, nsb, hot, rinv, pos, fc_k, rank_k, factor, params: ParametersLexLSI):
+    """Per-level Tikhonov damping in the carried frame
+    (``tracker.py:706-766``, reference ``regularize_tikhonov_1``,
+    ``lexlse.h:1700-1763``): the R-frame rhs head of the W rows becomes
+    [R, T] y* with y* the damped least-squares solution over the remaining
+    variables, coupled through the accumulated null space ``nsb`` (B, n,
+    n+1), physical on both axes.  The damped problem does not depend on
+    the orthonormal frame of the pivot block, so it gives the exact tier's
+    y*.  Then the null space accumulates the level with the damped rhs.
+    Returns (W, nsb)."""
+    B, K, np1 = W.shape
+    n = np1 - 1
+    dtype = W.dtype
+    rows_live = torch.arange(K, device=W.device) < rank_k[:, None]
+    act = (pos >= fc_k[:, None]).to(dtype)
+    elim = (pos < fc_k[:, None]).to(dtype)
+    A1 = W[:, :, :n] * act[:, None, :]
+    Sm = nsb[:, :, :n] * elim[:, :, None] * act[:, None, :]
+    s_vec = nsb[:, :, n] * elim
+    c_orig = W[:, :, n]
+    # the damped solves are the exact tier's (tracker.py:320-392)
+    if params.regularization_type == RegularizationType.TIKHONOV_CG:
+        y = cgls_tikhonov(A1, Sm, s_vec, c_orig * rows_live.to(dtype), factor, act,
+                          params.max_number_of_CG_iterations)
+    else:
+        mu = factor * factor
+        eye = torch.eye(n, dtype=dtype, device=W.device)
+        D = A1.transpose(1, 2) @ A1 + mu * (Sm.transpose(1, 2) @ Sm) + mu * eye
+        d = torch.einsum("bkn,bk->bn", A1, c_orig) + mu * torch.einsum("brn,br->bn", Sm, s_vec)
+        y = _masked_chol_solve(D, d, act > 0)
+    c_new = torch.einsum("bkn,bn->bk", A1, y)
+    do_reg = (factor != 0.0) & (rank_k > 0)
+    c_reg = torch.where(do_reg[:, None] & rows_live, c_new, c_orig)
+    W = torch.cat([W[:, :, :n], c_reg[:, :, None]], 2)
+    # the new rows of the basis at the pivot columns hold [S_prev_R + I]
+    # R^-1; the trailing columns and the rhs take the Gauss-style update
+    end_col = (fc_k + rank_k)[:, None]
+    SR = torch.einsum("brn,bkn->brk", nsb[:, :, :n] * elim[:, :, None], hot)
+    left = (SR + hot.transpose(1, 2)) @ rinv
+    trail_p1 = torch.cat([(pos >= end_col).to(dtype), torch.ones(B, 1, dtype=dtype,
+                                                                 device=W.device)], 1)
+    Up = W * rows_live[:, :, None].to(dtype) * trail_p1[:, None, :]
+    ns_upd = nsb - (left @ Up) * trail_p1[:, None, :]
+    pivcol = (pos >= fc_k[:, None]) & (pos < end_col)
+    left_scat = torch.einsum("brk,bkn->brn", left, hot)
+    ns_upd = torch.cat([torch.where(pivcol[:, None, :], left_scat, ns_upd[:, :, :n]),
+                        ns_upd[:, :, n:]], 2)
+    return W, torch.where((rank_k > 0)[:, None, None], ns_upd, nsb)
+
+
 def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: ParametersLexLSI,
                        *, ns_iters: int, cert_tol: float, ext_steps: int,
-                       chg: Optional[_Change] = None):
+                       chg: Optional[_Change] = None, reg_factors=None):
     """Re-factorize the masked staircase with the carried pivot order,
-    absorbing rank growth by greedy pivot extension (``tracker.py:395-814``
-    without regularization).
+    absorbing rank growth by greedy pivot extension (``tracker.py:395-814``).
 
     Per level: re-orthonormalize the carried pivot block, run up to
     ``ext_steps`` greedy extension steps with the reference's own pivot
@@ -246,6 +329,9 @@ def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: Para
     form, and each level below absorbs the rank-1 change of its Gauss
     elimination, s(g v^T + v g^T) - beta v v^T, as three signed rank-1
     terms with geometric-mean balancing.
+
+    With ``reg_factors`` (p,), one factor for each level, every level is
+    damped (:func:`_damp_level`) before it eliminates the rows below.
 
     Returns ``(ok (B,), levels, fcs (B, p), pos, ranks, rinv)`` with one
     :class:`_Level` (or None for an empty level) per level."""
@@ -270,6 +356,8 @@ def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: Para
         # removal carry, overwritten at an activation's level by the
         # extension pivot
         c_glob, w_cur = chg.c_rm, chg.w_rm
+    if reg_factors is not None:
+        nsb = torch.zeros(B, n, n + 1, dtype=dtype, device=dev)
     for k, (fr, dim) in enumerate(zip(offsets, dims)):
         fcs_list.append(fc_k)
         if dim == 0:
@@ -402,6 +490,13 @@ def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: Para
         tol_chk = torch.maximum(tol_eff, 8.0 * cert[:, None] * colnorm0)
         ok = ok & ~(beyond & (cn >= tol_chk)).any(1)
 
+        # the multipliers take the UNdamped R-frame rhs: damping rewrites
+        # only the sub-rank head (lexlse.h:316-410)
+        c_orig = W[:, :, n]
+        if reg_factors is not None:
+            W, nsb = _damp_level(W, nsb, hot, rinv_new, pos, fc_k, rank_k, reg_factors[k],
+                                 params)
+
         # Gauss elimination of all lower-priority rows (lexlse.h:431-471):
         # L = B_P R^-1; applying the full R-frame rows W cancels the pivot
         # columns exactly
@@ -425,7 +520,7 @@ def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: Para
                                 torch.where(act_here[:, None], c_col, c_glob[:, fr + dim:])], 1)
             w_cur = torch.where(act_here[:, None], w_row, w_cur)
 
-        levels.append(_Level(hot, Q, W, rinv_new, Lp, W[:, :, n], lvl[:, :, n], lam_floor))
+        levels.append(_Level(hot, Q, W, rinv_new, Lp, c_orig, lvl[:, :, n], lam_floor))
         rinv_out.append(rinv_new)
         ranks_out.append(rank_k)
         fc_k = fc_k + rank_k
@@ -487,11 +582,19 @@ def _hot_lambda(levels, struct: Structure, B: int, dtype, device):
     return torch.cat(lam_parts, 2)
 
 
-def _check_tracked_config(params: ParametersLexLSI, name: str) -> None:
-    if params.regularization_type != RegularizationType.NONE:
-        raise LexLSError(
-            f"{name}: the regularized tracker (TIKHONOV, TIKHONOV_CG) is not ported; "
-            "see ROADMAP.md, queue A, item 7")
+def _check_tracked_config(params: ParametersLexLSI, reg, name: str) -> None:
+    """What the tracker runs, as ``tracker.py:1038-1055``: regularization
+    NONE, or TIKHONOV / TIKHONOV_CG with factors and a constant factor;
+    no cycling handling, log, trace or ``use_phase1_v0``."""
+    rt = params.regularization_type
+    if rt not in (RegularizationType.NONE, RegularizationType.TIKHONOV,
+                  RegularizationType.TIKHONOV_CG):
+        raise LexLSError(f"{name}: only NONE/TIKHONOV/TIKHONOV_CG regularization supported")
+    if rt != RegularizationType.NONE:
+        if reg is None:
+            raise LexLSError(f"{name}: TIKHONOV needs reg factors")
+        if params.variable_regularization_factor != 0.0:
+            raise LexLSError(f"{name}: variable regularization factor unsupported")
     if (params.cycling_handling_enabled or params.log_working_set_enabled
             or params.trace_enabled or params.use_phase1_v0):
         raise LexLSError(f"{name}: cycling/log/trace/use_phase1_v0 unsupported")
@@ -521,9 +624,10 @@ class _Trip:
 
 
 def _trip(c: _Trip, A, *, struct: Structure, params: ParametersLexLSI, ns_iters: int,
-          cert_tol: float, ext_steps: int, nochg: bool) -> _Trip:
+          cert_tol: float, ext_steps: int, nochg: bool, reg=None) -> _Trip:
     """One tracker trip over the batch (``tracker.py:1178-1364``): carried
-    re-factorization, one reference active-set step, committed only for
+    re-factorization (damped by the general levels' factors ``reg`` under
+    regularization), one reference active-set step, committed only for
     alive instances whose carry was accepted.  ``nochg`` drops the
     change-absorption inputs: valid for the first trip of a warm solve,
     whose carry matches the previous solve's final working set."""
@@ -555,7 +659,7 @@ def _trip(c: _Trip, A, *, struct: Structure, params: ParametersLexLSI, ns_iters:
         chg = _Change(a_row, hot_g, lv, c.chg_sign * has_g, c.chg_c, c.chg_w)
     ok, levels, fcs, pos_n, ranks_n, rinv_n = _factorize_carried(
         Agz, bgz, c.rinv, c.pos, c.ranks, struct, params,
-        ns_iters=ns_iters, cert_tol=cert_tol, ext_steps=ext_steps, chg=chg)
+        ns_iters=ns_iters, cert_tol=cert_tol, ext_steps=ext_steps, chg=chg, reg_factors=reg)
 
     x_star = _hot_solve(levels, fcs, pos_n, fixed_mask, fixed_val, struct)
     dx = x_star - s.x
@@ -644,7 +748,7 @@ def _alive(s: LexLSIState, fall, max_fact: int):
 def _tracked_tail(A, s0: LexLSIState, carried: Carried, *, struct: Structure,
                   params: ParametersLexLSI, ns_iters: int, cert_tol: float, ext_steps: int,
                   chg0=None, loop_cap: int = 0, trip1_noext: bool = False,
-                  stats: Optional[list] = None):
+                  stats: Optional[list] = None, reg=None):
     """The tracker loop and the kernel handover, from a batched state
     (phase 1 done, or the mid-solve state of the cold bootstrap;
     ``tracker.py:1092-1604``).
@@ -657,14 +761,19 @@ def _tracked_tail(A, s0: LexLSIState, carried: Carried, *, struct: Structure,
     in kernel B2, as do those whose carry was rejected.  Resolved
     instances are parked for that launch through the factorization budget
     (status is not a kernel input), and when every instance resolved the
-    kernel is not launched.  ``stats``, when given, receives one
-    ``(trips, instances handed to the kernel)`` tuple.  Returns
+    kernel is not launched.  With ``reg``, the regularization factors of
+    every level (device tensor), the trips damp each general level and the
+    instances left over continue in the exact tier (:func:`_exact_tail`)
+    with their own counters, their carried factors invalidated (ranks 0:
+    they fall back at once in the next solve).  ``stats``, when given,
+    receives one ``(trips, instances handed over)`` tuple.  Returns
     ``(state, carried')``."""
     B, m, n = A.shape
     d0 = struct.d0
     dtype, dev = A.dtype, A.device
     max_fact = params.max_number_of_factorizations
-    kw = dict(struct=struct, params=params, ns_iters=ns_iters, cert_tol=cert_tol)
+    reg_g = None if reg is None else (reg[1:] if struct.simple_bounds else reg)
+    kw = dict(struct=struct, params=params, ns_iters=ns_iters, cert_tol=cert_tol, reg=reg_g)
 
     if chg0 is None:
         chg_hot0 = torch.zeros(B, m, dtype=dtype, device=dev)
@@ -695,6 +804,15 @@ def _tracked_tail(A, s0: LexLSIState, carried: Carried, *, struct: Structure,
         stats.append((trips, n_unresolved))
     if n_unresolved == 0:
         return s, carried_t
+    if reg is not None:
+        st_x = _exact_tail(A, s, reg, struct, params)
+        carried_x = Carried(rinv=torch.zeros_like(c.rinv),
+                            pos=torch.arange(n, dtype=torch.int32, device=dev).expand(B, n),
+                            ranks=torch.zeros_like(c.ranks))
+        fields = {f.name: _where_rows(resolved, getattr(s, f.name), getattr(st_x, f.name))
+                  for f in dataclasses.fields(s)}
+        return LexLSIState(**fields), Carried(*(_where_rows(resolved, a_t, a_x)
+                                                for a_t, a_x in zip(carried_t, carried_x)))
 
     # handover: unresolved instances continue in kernel B2 from their
     # current state with their own iteration counters; the kernel's
@@ -717,7 +835,7 @@ def solve_core_tracked(
     A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, carried: Carried,
     struct: Structure, params: ParametersLexLSI,
     ns_iters: int = 2, cert_tol: Optional[float] = None, ext_steps: int = 1,
-    loop_cap: int = 0, trip1_noext: bool = False, stats: Optional[list] = None,
+    loop_cap: int = 0, trip1_noext: bool = False, stats: Optional[list] = None, reg=None,
 ):
     """Batched warm solve with the active-set loop on the carried
     factorization (``tracker.py:970-1035``).
@@ -731,8 +849,11 @@ def solve_core_tracked(
     :func:`bootstrap_carried` or from this function's second return value.
     ``loop_cap`` > 0 bounds the tracker loop to that many trips.  Same
     configuration envelope as :func:`lexls_tpu_torch.solve_core_fused`,
-    without regularization.  Returns ``(state, carried')``."""
-    _check_tracked_config(params, "solve_core_tracked")
+    plus TIKHONOV and TIKHONOV_CG with the per-level factors ``reg`` (p,):
+    the damped solve runs inside every trip, and instances that fall
+    continue in the exact tier, since kernel B2 has no regularization.
+    Returns ``(state, carried')``."""
+    _check_tracked_config(params, reg, "solve_core_tracked")
     full_fp32()
     if cert_tol is None:
         cert_tol = default_cert_tol(A.dtype)
@@ -741,7 +862,7 @@ def solve_core_tracked(
                         True, False)
     return _tracked_tail(A, s0, carried, struct=struct, params=params, ns_iters=ns_iters,
                          cert_tol=cert_tol, ext_steps=ext_steps, loop_cap=loop_cap,
-                         trip1_noext=trip1_noext, stats=stats)
+                         trip1_noext=trip1_noext, stats=stats, reg=_reg_factors(reg, params, A))
 
 
 def solve_core_cold_tracked(
@@ -749,33 +870,46 @@ def solve_core_cold_tracked(
     struct: Structure, params: ParametersLexLSI,
     x_guess_specified: bool = False, v0_specified: bool = False,
     ns_iters: int = 2, cert_tol: Optional[float] = None, ext_steps: int = 1,
-    stats: Optional[list] = None,
+    stats: Optional[list] = None, reg=None,
 ):
     """Cold-start batched solve through the tracker loop
     (``tracker.py:1614-1731``).
 
     No carried state exists at a cold start, so one exact kernel iteration
     runs first (``iter_cap=1``): it factorizes the initial working set with
-    the greedy pivoted panel and exports the factors.  The tracker loop
-    then continues every remaining iteration, with per-instance kernel
-    fallback.  Returns ``(state, carried')``."""
+    the greedy pivoted panel and exports the factors.  Under TIKHONOV or
+    TIKHONOV_CG (factors ``reg``), which the kernel does not run, that
+    iteration runs on the exact tier (kernel B1) and the carried factors
+    come from its factorization (:func:`carried_from_lexqr`); phase 1
+    factorizes without the factors there, as the JAX package's does.  The
+    tracker loop then continues every remaining iteration, with
+    per-instance fallback.  Returns ``(state, carried')``."""
     from .ops.fused import fused_active_set
 
-    _check_tracked_config(params, "solve_core_cold_tracked")
+    _check_tracked_config(params, reg, "solve_core_cold_tracked")
     full_fp32()
     if cert_tol is None:
         cert_tol = default_cert_tol(A.dtype)
     A, lb, ub = A.contiguous(), lb.contiguous(), ub.contiguous()
+    reg = _reg_factors(reg, params, A)
     s = _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, struct, params,
                        x_guess_specified, v0_specified)
-    out = fused_active_set(A, s.lb, s.ub, s.ctr_type, s.stamp, s.next_stamp, s.x, s.v, s.Ax,
-                           s.n_fact, iter_cap=1, **active_set_kwargs(struct, params, A.device))
-    # a paused instance keeps status UNKNOWN: the tracker loop takes it on
-    s1 = dataclasses.replace(
-        s, x=out.x, v=out.v, dx=out.dx, dv=out.dv, Ax=out.Ax, Adx=out.Adx,
-        ctr_type=out.ctr_type, stamp=out.stamp, next_stamp=out.next_stamp, it=out.it,
-        n_act=out.n_act, n_deact=out.n_deact, n_fact=out.n_fact, status=out.status)
-    carried0 = bootstrap_carried((out.rpad, out.posf, out.ranks))
+    if reg is not None:
+        Ag, bg, fixed_mask, fixed_val = _masked_general(A, s.lb, s.ub, s.ctr_type, struct)
+        f = _factorize_masked(Ag, bg, fixed_mask, fixed_val, struct, params, reg)
+        s1 = _verify_with_f(s, A, Ag, f, _instance_alive(s, params.max_number_of_factorizations),
+                            struct, params)
+        carried0 = carried_from_lexqr(f, struct)
+    else:
+        out = fused_active_set(A, s.lb, s.ub, s.ctr_type, s.stamp, s.next_stamp, s.x, s.v,
+                               s.Ax, s.n_fact, iter_cap=1,
+                               **active_set_kwargs(struct, params, A.device))
+        # a paused instance keeps status UNKNOWN: the tracker loop takes it on
+        s1 = dataclasses.replace(
+            s, x=out.x, v=out.v, dx=out.dx, dv=out.dv, Ax=out.Ax, Adx=out.Adx,
+            ctr_type=out.ctr_type, stamp=out.stamp, next_stamp=out.next_stamp, it=out.it,
+            n_act=out.n_act, n_deact=out.n_deact, n_fact=out.n_fact, status=out.status)
+        carried0 = bootstrap_carried((out.rpad, out.posf, out.ranks))
 
     # the bootstrap factors describe the INITIAL working set, while the
     # bootstrap iteration may have committed one change into s1: hand it to
@@ -798,4 +932,4 @@ def solve_core_cold_tracked(
     carried0 = Carried(rinv=carried0.rinv, pos=pos0, ranks=ranks0)
     return _tracked_tail(A, s1, carried0, struct=struct, params=params, ns_iters=ns_iters,
                          cert_tol=cert_tol, ext_steps=ext_steps,
-                         chg0=(chg_hot0, chg_sign0), stats=stats)
+                         chg0=(chg_hot0, chg_sign0), stats=stats, reg=reg)

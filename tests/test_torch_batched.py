@@ -161,7 +161,6 @@ def test_exact_tier_and_whole_solve_tier_agree():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(regularization_type=lt.RegularizationType.TIKHONOV),
     dict(trace_enabled=True),
     dict(use_phase1_v0=True),
 ])

@@ -211,16 +211,6 @@ def test_default_cert_tol_and_kmax_match_jax():
     assert ttrk.kmax_of(lt.Structure.of(prob)) == jtrk.kmax_of(jli.Structure.of(prob)) == 5
 
 
-@pytest.mark.parametrize("entry", ["solve_core_tracked", "solve_core_cold_tracked"])
-def test_tracked_refuses_regularization(entry):
-    """The regularized tracker is not ported: any regularization type
-    raises, naming the roadmap, before anything runs."""
-    params = lt.ParametersLexLSI(regularization_type=lt.RegularizationType.TIKHONOV)
-    with pytest.raises(lt.LexLSError, match="ROADMAP"):
-        getattr(lt, entry)(*([None] * 8), **(dict(carried=None) if "cold" not in entry else {}),
-                           struct=None, params=params)
-
-
 # ---------------------------------------------------------------------------
 # Whole solves
 # ---------------------------------------------------------------------------
