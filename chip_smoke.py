@@ -64,7 +64,14 @@ Phases:
      and the device's busy share; the exact tier on the card against the
      CPU in float64 (B=128); and ``solve_sequence_batched_native`` with
      TIKHONOV (T=3), each warm step timed alone.  ``python3 chip_smoke.py
-     regularized`` runs this phase alone.
+     regularized`` runs this phase alone;
+ 12. the C++ golden corpus (``tests/golden``, read with the port's own
+     ``.dat`` parser): ``lexls_tpu_torch.solve`` on 52 fixtures in float64
+     through kernel B1 (and on the CPU, identical), ``solve_core_fused``
+     (kernel B2) and the tracker on the 46 unregularized ones in float32,
+     B2 against its plain version in float64, and the trace and
+     ``use_phase1_v0`` at the bench shape, card against CPU.  ``python3
+     chip_smoke.py golden`` runs this phase alone.
 
 Prints one JSON line with the per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -74,6 +81,7 @@ and no result is printed.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -91,6 +99,14 @@ TRACKED = dict(loop_cap=1, ns_iters=2, trip1_noext=True)  # bench.py:84-131
 # float32 a tenth of them may end in another working set, and with 16
 # instances that tenth was a single one)
 SB_N, SB_DIMS, SB_B_PLAIN, SB_CAP, SB_T = 88, (60, 33, 3, 2, 97), 64, 12, 3
+# the C++ golden corpus (tests/golden, PARITY.md:89-101) and the float32
+# tolerances of tools/golden_fused_tpu.py:63-69
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+GOLDEN_F32 = dict(max_number_of_factorizations=250, tol_linear_dependence=1e-7,
+                  tol_wrong_sign_lambda=1e-4, tol_correct_sign_lambda=1e-6, tol_feasibility=1e-5)
+# (d): the bench shape at B=64 with a budget of 40 factorizations (its cold
+# solve takes some 200 passes, minutes for the CPU side of the comparison)
+GOLDEN_TRACE_B, GOLDEN_TRACE_BUDGET = 64, 40
 # the card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
 # memory rate, and the float32 rate outside the tensor cores
 PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
@@ -1545,6 +1561,271 @@ def run_regularized(dev, report):
     print(f"[regularized] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def _golden_cases():
+    """The 52 fixtures of the golden phase, read with the port's own
+    ``.dat`` parser: ``ineq_00..19`` cold, ``warm_00..07``,
+    ``warm_sb_00..05``, ``warm_tik_00..05`` and ``seq_00..03`` at t1-t3
+    warm-started with the guess and x they carry (``warm_tik`` with its
+    TIKHONOV factors).  Each case: (name, problem, solve keywords, gold,
+    regularized)."""
+    from lexls_tpu_torch.io import dat as io_dat
+
+    with open(os.path.join(GOLDEN, "index.json")) as f:
+        index = json.load(f)
+    names = ([f"ineq_{i:02d}" for i in range(20)] + [f"warm_{i:02d}" for i in range(8)]
+             + [f"warm_sb_{i:02d}" for i in range(6)] + [f"warm_tik_{i:02d}" for i in range(6)]
+             + [f"seq_{i:02d}_t{t}" for i in range(4) for t in (1, 2, 3)])
+    cases = []
+    for name in names:
+        d = io_dat.load_dat_python(os.path.join(GOLDEN, index[name]["dat"]))
+        prob = io_dat.to_inequality(d)
+        regularized = bool(index[name].get("reg_type"))
+        if regularized:
+            prob.regularization = np.asarray(index[name]["reg_factors"], float)
+        kw = {}
+        if index[name].get("warm"):
+            kw = dict(x0=d.solution_guess, active_guess=d.active_guess_stacked())
+        with open(os.path.join(GOLDEN, name + ".json")) as f:
+            gold = json.load(f)
+        cases.append((name, prob, kw, gold, regularized))
+    return cases
+
+
+def _violation_norms(prob, x):
+    """Per-level norms of the constraint violation (``objective.h:611-630``)
+    of ``x`` (NumPy, float64)."""
+    Ax = prob.A @ np.asarray(x, np.float64)
+    w = np.where(Ax <= prob.lb, Ax - prob.lb, np.where(Ax >= prob.ub, Ax - prob.ub, 0.0))
+    return np.array([np.linalg.norm(w[prob.level_slice(k)]) for k in range(prob.n_obj)])
+
+
+def _gold_norms(prob, gold):
+    """Per-level norms of the violation that the reference recorded."""
+    w = np.concatenate([np.asarray(v, np.float64) for v in gold["violation"]])
+    return np.array([np.linalg.norm(w[prob.level_slice(k)]) for k in range(prob.n_obj)])
+
+
+def _golden_batch(prob, kw, dtype, dev):
+    """The batch of one that a tier takes for one fixture: (A, lb, ub,
+    ctr_type, stamp, next_stamp, x0, v0) on ``dev``, and whether x0 is a
+    guess."""
+    from lexls_tpu_torch import initial_activation
+
+    c0, s0, n0 = initial_activation(prob, kw.get("active_guess"))
+    x0 = kw.get("x0")
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev).to(dtype)[None]
+
+    def i(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev).reshape(1, -1)
+
+    return ((t(prob.A), t(prob.lb), t(prob.ub), i(c0), i(s0), i(n0)[:, 0],
+             t(np.zeros(prob.n_var) if x0 is None else x0), t(np.zeros(prob.n_ctr))),
+            x0 is not None)
+
+
+def _route_line(label, ok, total, seconds, launches, misses):
+    print(f"[golden {label}] passed {ok}/{total} in {seconds:.3f} s; launches {launches}"
+          + (f"; misses: {misses}" if misses else ""))
+
+
+def run_golden(dev, report):
+    """The C++ golden corpus on the card (``tests/golden``, the only oracle
+    from the real lexls), each route driven with the launch counts zeroed
+    just before it and read just after.  (a) ``lexls_tpu_torch.solve`` on
+    the 52 fixtures in float64 (the exact tier, kernel B1 once per level a
+    pass): status, per-level violation norms to 1e-8 of the gold's (and a
+    relative 1e-7, as ``tests/test_golden_parity.py`` holds them),
+    factorizations on the warm and sequence fixtures, x to 1e-7 on
+    ``warm_tik``, B1 at least levels x passes; the same solves on the CPU
+    in this process, statuses, iterations and working sets identical.  (b)
+    ``solve_core_fused`` (kernel B2) with B=1 on the 46 unregularized
+    fixtures in float32 at ``tools/golden_fused_tpu.py``'s tolerances:
+    solved where the gold is, x finite, norms within 1e-3 x max(1, it/16);
+    and B2 against its plain version on the CPU from the same phase-1
+    state, float64: statuses, iterations and working sets identical, x to
+    1e-8.  (``warm_tik`` stays out of float32: mu = factor^2 is below its
+    epsilon.)  (c) ``solve_core_cold_tracked`` on the same 46, float32,
+    the checks of (b).  (d) the trace and ``use_phase1_v0`` through
+    ``solve_core_batched`` at the bench shape (B=64, float64, a budget of 40
+    factorizations): card and CPU agree, trace arrays and x to 1e-10,
+    operations and rows identical."""
+    import dataclasses
+
+    from lexls_tpu_torch import (ParametersLexLSI, RegularizationType, Structure,
+                                 batched_initial_arrays, solve, solve_core_batched,
+                                 solve_core_cold_tracked, solve_core_fused)
+    from lexls_tpu_torch.lexlsi import _initial_state, active_set_kwargs
+    from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref, panel_factorize
+
+    t_phase = time.perf_counter()
+    cases = _golden_cases()
+    misses = []
+
+    def params_of(regularized):
+        return ParametersLexLSI(regularization_type=RegularizationType.TIKHONOV
+                                if regularized else RegularizationType.NONE)
+
+    def zero():
+        panel_factorize.launches = fused_active_set.launches = 0
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def read(key, t0):
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"panel_factorize": panel_factorize.launches,
+                    "fused_active_set": fused_active_set.launches}
+        for k in report:
+            report[k].setdefault("launches_by_path", {})[key] = launches[k]
+        return seconds, launches
+
+    # (a) the host API, the exact tier through B1, float64
+    ok_a, results, b1_short, seconds_of = 0, {}, [], {}
+    t0 = zero()
+    for name, prob, kw, gold, regularized in cases:
+        before, t_solve = panel_factorize.launches, time.perf_counter()
+        res = solve(prob, params_of(regularized), device="cuda", **kw)  # NumPy out: synced
+        seconds_of[name] = time.perf_counter() - t_solve
+        p = len(Structure.of(prob).lexlse_dims)
+        if panel_factorize.launches - before < p * res.n_iterations:
+            b1_short.append(name)
+        results[name] = res
+        norms, want = _violation_norms(prob, res.x), _gold_norms(prob, gold)
+        err = float(np.abs(norms - want).max())
+        # np.testing's rtol of 1e-7 beside the 1e-8, as tests/test_golden_parity.py
+        good = int(res.status) == int(gold["status"]) and np.allclose(norms, want, rtol=1e-7,
+                                                                      atol=1e-8)
+        if regularized:
+            good = good and np.allclose(res.x, np.asarray(gold["x"]), rtol=1e-7, atol=1e-7)
+        elif not name.startswith("ineq_"):
+            good = good and res.n_factorizations == int(gold["factorizations"])
+        ok_a += good
+        if not good:
+            misses.append(f"exact {name}: status {int(res.status)} (gold {gold['status']}), "
+                          f"|dnorm| {err:.2e}, factorizations {res.n_factorizations} (gold "
+                          f"{gold.get('factorizations')})")
+    seconds, launches = read("golden_exact", t0)
+    _route_line("(a) solve, exact tier, f64", ok_a, len(cases), seconds, launches,
+                [m for m in misses if m.startswith("exact")])
+    passes = {n: r.n_iterations for n, r in results.items()}
+    top = max(passes, key=passes.get)
+    print(f"[golden (a)] passes per solve: max {passes[top]} ({top}: {seconds_of[top]:.4f} s, "
+          f"{1e3 * seconds_of[top] / passes[top]:.3f} ms a pass), total "
+          f"{sum(passes.values())}; B1 launches "
+          f"{launches['panel_factorize']} (at least levels x passes on every fixture: "
+          f"{'yes' if not b1_short else b1_short})")
+    if b1_short or launches["panel_factorize"] == 0 or launches["fused_active_set"] != 0:
+        misses.append(f"exact: B1 launched fewer than levels x passes on {b1_short}, or B2 ran")
+    t_cpu = time.perf_counter()
+    differ = []
+    for name, prob, kw, gold, regularized in cases:
+        cpu, card = solve(prob, params_of(regularized), device="cpu", **kw), results[name]
+        if (cpu.status, cpu.n_iterations) != (card.status, card.n_iterations) \
+                or not np.array_equal(cpu.ctr_type, card.ctr_type):
+            differ.append(name)
+    print(f"[golden (a)] the same solves on the CPU ({time.perf_counter() - t_cpu:.3f} s): "
+          f"statuses, iterations and working sets differing on {differ or 'none'}")
+    if differ:
+        misses.append(f"exact: card and CPU differ on {differ}")
+
+    # (b) B2 and (c) the tracker, float32, on the unregularized fixtures
+    plain = [c for c in cases if not c[4]]
+    params32 = ParametersLexLSI(**GOLDEN_F32)
+    for key, tag, label, tracked in (
+            ("golden_fused", "(b)", "solve_core_fused, B2, f32", False),
+            ("golden_tracked", "(c)", "solve_core_cold_tracked, f32", True)):
+        ok, worst = 0, 0.0
+        t0 = zero()
+        for name, prob, kw, gold, _ in plain:
+            args, warm = _golden_batch(prob, kw, torch.float32, dev)
+            struct = Structure.of(prob)
+            if tracked:
+                st, _ = solve_core_cold_tracked(*args, struct=struct, params=params32,
+                                                x_guess_specified=warm, v0_specified=False)
+            else:
+                st = solve_core_fused(*args, None, struct=struct, params=params32,
+                                      x_guess_specified=warm, v0_specified=False)
+            x = st.x[0].double().cpu().numpy()
+            dnorm = float(np.abs(_violation_norms(prob, x) - _gold_norms(prob, gold)).max())
+            atol = 1e-3 * max(1.0, int(st.it[0]) / 16.0)
+            worst = max(worst, dnorm / atol)
+            good = bool(np.isfinite(x).all()) and dnorm <= atol and (
+                int(gold["status"]) != 0 or int(st.status[0]) == 0)
+            ok += good
+            if not good:
+                misses.append(f"{key} {name}: status {int(st.status[0])}, |dnorm| {dnorm:.2e} "
+                              f"(bound {atol:.1e}), x finite {bool(np.isfinite(x).all())}")
+        seconds, launches = read(key, t0)
+        _route_line(f"{tag} {label}", ok, len(plain), seconds, launches,
+                    [m for m in misses if m.startswith(key)])
+        print(f"[golden {tag}] largest |dnorm| / bound {worst:.3f}")
+        if launches["fused_active_set"] == 0:
+            misses.append(f"{key}: B2 was not launched")
+
+    # B2 against its plain version, float64, from the same phase-1 state
+    params64 = ParametersLexLSI()
+    differ, xerr = [], 0.0
+    t0 = time.perf_counter()
+    for name, prob, kw, gold, _ in plain:
+        args, warm = _golden_batch(prob, kw, torch.float64, dev)
+        struct = Structure.of(prob)
+        s = _initial_state(*args, struct, params64, warm, False)
+        got = fused_active_set(*_state_args(args[0], s), **active_set_kwargs(struct, params64, dev))
+        cpu = [a.cpu() for a in _state_args(args[0], s)]
+        want = fused_active_set_ref(*cpu, **active_set_kwargs(struct, params64, "cpu"))
+        same = all(torch.equal(getattr(got, f).cpu(), getattr(want, f))
+                   for f in ("status", "it", "ctr_type", "n_fact"))
+        err = float((got.x.cpu() - want.x).abs().max())
+        xerr = max(xerr, err)
+        if not same or err > 1e-8:
+            differ.append(name)
+    torch.cuda.synchronize()
+    print(f"[golden (b)] B2 against its plain version (CPU), f64, {len(plain)} fixtures in "
+          f"{time.perf_counter() - t0:.3f} s: statuses, iterations, working sets or x (to "
+          f"1e-8) differing on {differ or 'none'}; max |x err| {xerr:.3e}")
+    if differ:
+        misses.append(f"B2 and its plain version differ on {differ}")
+
+    # (d) trace and use_phase1_v0 at the bench shape, card against CPU
+    prob, params, base, drifts, lb, ub = _bench_problem(torch.float64, dev)
+    struct, Bt, m = Structure.of(prob), GOLDEN_TRACE_B, prob.n_ctr
+    t0 = time.perf_counter()
+    A0, A1 = ((base[:Bt] + drifts[k]).contiguous() for k in (0, 1))
+    lbs, ubs = lb.expand(Bt, m).contiguous(), ub.expand(Bt, m).contiguous()
+    trace_fields = ("trace_x", "trace_v", "trace_dx", "trace_dv", "trace_alpha")
+    cold_x = None
+    for label, opts in (("trace", dict(trace_enabled=True)),
+                        ("use_phase1_v0 + trace", dict(trace_enabled=True, use_phase1_v0=True))):
+        prm = dataclasses.replace(params, max_number_of_factorizations=GOLDEN_TRACE_BUDGET,
+                                  **opts)
+        guess = "use_phase1_v0" in opts
+        init = list(batched_initial_arrays(prob, Bt, dev))
+        if guess:
+            init[3] = cold_x
+        args = (A1 if guess else A0, lbs, ubs, *init, None)
+        kw = dict(struct=struct, params=prm, x_guess_specified=guess, v0_specified=False)
+        card = solve_core_batched(*args, **kw)
+        cpu = solve_core_batched(*(a.cpu() if torch.is_tensor(a) else a for a in args), **kw)
+        if not guess:
+            cold_x = card.x
+        ints = [f for f in ("status", "it", "n_fact", "ctr_type", "trace_op", "trace_row")
+                if not torch.equal(getattr(card, f).cpu(), getattr(cpu, f))]
+        errs = {f: float((getattr(card, f).cpu() - getattr(cpu, f)).abs().max())
+                for f in ("x",) + trace_fields}
+        print(f"[golden (d)] {label}, solve_core_batched f64 B={Bt}: iterations mean "
+              f"{float(card.it.float().mean()):.2f} max {int(card.it.max())}, status "
+              f"{torch.bincount(card.status + 1).tolist()} (-1,0,1,2); card against CPU: "
+              f"fields differing {ints or 'none'}; max |err| "
+              + ", ".join(f"{f} {e:.3e}" for f, e in errs.items()))
+        if ints or max(errs.values()) > 1e-10 or card.trace_x.shape[1] == 0:
+            misses.append(f"trace: card and CPU differ ({label}): {ints}, {errs}")
+    print(f"[golden (d)] {time.perf_counter() - t0:.3f} s")
+    print(f"[golden] phase wall {time.perf_counter() - t_phase:.1f} s")
+    if misses:
+        raise SystemExit("golden phase failed:\n  " + "\n  ".join(misses))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU",
@@ -1593,6 +1874,7 @@ def main():
         "main_paths": lambda: run_main_paths(dev, report),
         "new_paths": lambda: run_new_paths(dev, report),
         "regularized": lambda: run_regularized(dev, report),
+        "golden": lambda: run_golden(dev, report),
     }
     # with phase names as arguments, only those run and no result is printed
     # (for work on one kernel); with none, as the check runs it, all do

@@ -6,31 +6,43 @@ loop (kernel B2) as hand-written CUDA kernels, over them the
 carried-factorization tracker (``tracked=True``), and beside them the
 natively batched exact tier, which factorizes through B1 in every
 iteration and runs every regularization type (the tracker TIKHONOV and
-TIKHONOV_CG).  It
-imports torch and NumPy only; ``lexls_tpu`` (JAX) is the reference that
-the tests hold it against.
+TIKHONOV_CG).  Over the exact tier, the host API of one hierarchy:
+``solve``, ``solve_lambda``, ``solve_collect_wrong_sign``, the working-set
+replay (``wset``) and the ``.dat`` corpus I/O (``io``); their ``device``
+is the card unless the caller passes ``device="cpu"``.  It imports torch
+and NumPy only; ``lexls_tpu`` (JAX) is the reference that the tests hold
+it against.
 """
 
 __version__ = "0.1.0"
 
 from .types import (
     CtrType,
+    EqualityHierarchy,
     InequalityHierarchy,
     LexLSError,
+    ObjectiveType,
     OperationType,
     ParametersLexLSE,
     ParametersLexLSI,
     RegularizationType,
     TerminationStatus,
     build_general_hierarchy,
+    build_hierarchy_with_bounds,
 )
 from .lexlsi import (
+    LexLSIResult,
     LexLSIState,
     Structure,
     initial_activation,
+    solve,
+    solve_collect_wrong_sign,
+    solve_core,
     solve_core_batched,
     solve_core_fused,
+    solve_lambda,
 )
+from . import io
 from .parallel import batched_initial_arrays, solve_batched
 from .sequence import solve_sequence_batched_fused, solve_sequence_batched_native
 from .tracker import Carried, bootstrap_carried, solve_core_cold_tracked, solve_core_tracked
@@ -38,9 +50,12 @@ from .tracker import Carried, bootstrap_carried, solve_core_cold_tracked, solve_
 __all__ = [
     "Carried",
     "CtrType",
+    "EqualityHierarchy",
     "InequalityHierarchy",
     "LexLSError",
+    "LexLSIResult",
     "LexLSIState",
+    "ObjectiveType",
     "OperationType",
     "ParametersLexLSE",
     "ParametersLexLSI",
@@ -50,12 +65,18 @@ __all__ = [
     "batched_initial_arrays",
     "bootstrap_carried",
     "build_general_hierarchy",
+    "build_hierarchy_with_bounds",
     "initial_activation",
+    "io",
+    "solve",
+    "solve_collect_wrong_sign",
+    "solve_core",
     "solve_core_batched",
     "solve_core_cold_tracked",
     "solve_core_fused",
     "solve_batched",
     "solve_core_tracked",
+    "solve_lambda",
     "solve_sequence_batched_fused",
     "solve_sequence_batched_native",
 ]

@@ -39,6 +39,13 @@ class TerminationStatus(enum.IntEnum):
     MAX_NUMBER_OF_FACTORIZATIONS_EXCEEDED = 2
 
 
+class ObjectiveType(enum.IntEnum):
+    """Mirrors reference ``typedefs.h:60-64``."""
+
+    GENERAL = 0
+    SIMPLE_BOUNDS = 1
+
+
 class CtrType(enum.IntEnum):
     """Constraint activation types, reference ``typedefs.h:69-76``."""
 
@@ -113,6 +120,71 @@ class LexLSError(ValueError):
 
 
 @dataclasses.dataclass
+class WorkingSetLogEntry:
+    """One working-set change of a solve (``typedefs.h:380-432``): the
+    constraint as (objective, row within it), its type when added or
+    INACTIVE when removed, the step length of an addition or the selected
+    multiplier of a removal, the total rank of the iteration's
+    factorization, and whether cycling handling flagged it."""
+
+    obj_index: int
+    ctr_index: int
+    ctr_type: int
+    alpha_or_lambda: float
+    rank: int
+    cycling_detected: bool = False
+
+
+@dataclasses.dataclass
+class EqualityHierarchy:
+    """An equality-constrained lexicographic LS problem (LexLSE input):
+    the stacked ``A`` (sum(dims), n_var) and ``b``, the level sizes, and
+    optional fixed variables (``lexlse.h:1381-1419``)."""
+
+    A: np.ndarray
+    b: np.ndarray
+    dims: Tuple[int, ...]
+    fixed_idx: Optional[np.ndarray] = None
+    fixed_val: Optional[np.ndarray] = None
+    fixed_type: Optional[np.ndarray] = None  # CtrType per fixed variable
+
+    def __post_init__(self):
+        self.A = np.asarray(self.A, dtype=np.float64)
+        self.b = np.asarray(self.b, dtype=np.float64)
+        self.dims = tuple(int(d) for d in self.dims)
+        if self.A.shape[0] != sum(self.dims):
+            raise LexLSError("A row count does not match sum(dims)")
+        if self.b.shape[0] != self.A.shape[0]:
+            raise LexLSError("b length does not match A row count")
+        if self.fixed_idx is not None:
+            self.fixed_idx = np.asarray(self.fixed_idx, dtype=np.int64)
+            self.fixed_val = np.asarray(self.fixed_val, dtype=np.float64)
+            if self.fixed_type is None:
+                self.fixed_type = np.full(self.fixed_idx.shape, int(CtrType.ACTIVE_UB),
+                                          dtype=np.int64)
+            else:
+                self.fixed_type = np.asarray(self.fixed_type, dtype=np.int64)
+            if len(self.fixed_idx) > self.n_var:
+                raise LexLSError("Cannot fix more than n_var variables")
+
+    @property
+    def n_var(self) -> int:
+        return self.A.shape[1]
+
+    @property
+    def n_obj(self) -> int:
+        return len(self.dims)
+
+    @property
+    def n_fixed(self) -> int:
+        return 0 if self.fixed_idx is None else len(self.fixed_idx)
+
+    def level_slice(self, k: int) -> slice:
+        start = sum(self.dims[:k])
+        return slice(start, start + self.dims[k])
+
+
+@dataclasses.dataclass
 class InequalityHierarchy:
     """An inequality-constrained lexicographic LS problem (LexLSI input).
 
@@ -163,6 +235,23 @@ class InequalityHierarchy:
     @property
     def n_ctr(self) -> int:
         return sum(self.dims)
+
+    def level_slice(self, k: int) -> slice:
+        start = sum(self.dims[:k])
+        return slice(start, start + self.dims[k])
+
+    def level_of_row(self) -> np.ndarray:
+        """int array: level index of each stacked constraint row."""
+        return np.repeat(np.arange(self.n_obj, dtype=np.int64), self.dims)
+
+    def initial_ctr_type(self, tol_equality: float = 1e-15) -> np.ndarray:
+        """Equality constraints (lb == ub to ``tol_equality``) as
+        ACTIVE_EQ, the rest INACTIVE (``lexlsi.h:367-385``): general rows
+        with a zero normal stay inactive; simple bounds have none."""
+        eq = np.abs(self.lb - self.ub) < tol_equality
+        d0 = self.dims[0] if self.simple_bounds else 0
+        eq[d0:] &= (self.A[d0:] ** 2).sum(axis=1) > 0
+        return np.where(eq, int(CtrType.ACTIVE_EQ), int(CtrType.INACTIVE)).astype(np.int64)
 
 
 def build_general_hierarchy(

@@ -160,17 +160,32 @@ def test_exact_tier_and_whole_solve_tier_agree():
             np.testing.assert_array_equal(a, b, err_msg=f)
 
 
-@pytest.mark.parametrize("bad", [
-    dict(trace_enabled=True),
-    dict(use_phase1_v0=True),
-])
-def test_solve_core_batched_rejects_unsupported(bad):
+@pytest.mark.parametrize("option", ["trace_enabled", "use_phase1_v0"])
+def test_solve_core_batched_trace_and_phase1_v0_match_jax(option):
+    """The per-iteration trace, and ``use_phase1_v0`` from a guess (phase 1
+    counts no factorization, iteration 0 keeps its step and sweeps
+    nothing), against the JAX package's exact tier: every state field, the
+    trace's arrays to 1e-10 and its operations and rows equal.  Instances
+    that end early keep their trace while the others run on."""
     rng = np.random.default_rng(13)
-    prob = jgen.random_inequality_hierarchy(rng, 8, [3, 3])
-    with pytest.raises(lt.LexLSError):
-        lt.solve_core_batched(*convert.to_torch(_batch(prob, 2, rng), "cpu"),
-                              struct=lt.Structure.of(prob), params=lt.ParametersLexLSI(**bad),
-                              x_guess_specified=False, v0_specified=False)
+    prob = jgen.random_inequality_hierarchy(rng, 8, [3, 3], tight_fraction=0.6)
+    params = JT.ParametersLexLSI(max_number_of_factorizations=40,
+                                 **{"trace_enabled": True, option: True})
+    inputs = list(_batch(prob, 3, rng, drift=0.5))
+    guess = option == "use_phase1_v0"
+    if guess:
+        inputs[6] = 2.0 * rng.standard_normal((3, 8))
+    ref, got = _run_pair(prob, params, inputs, x_guess=guess)
+    assert got.trace_x.shape == (3, 42, 8) and len(set(got.it.tolist())) > 1
+    _assert_match(ref, got)
+    for f in ("trace_op", "trace_row"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    for f in ("trace_x", "trace_v", "trace_dx", "trace_dv", "trace_alpha"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(ref, f)),
+                                   atol=1e-10, rtol=0, err_msg=f)
+    if guess:
+        np.testing.assert_array_equal(got.n_fact.numpy(), got.it.numpy() - 1)
 
 
 def test_sequence_batched_native_matches_jax():

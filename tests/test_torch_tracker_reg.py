@@ -110,6 +110,58 @@ def test_reg_tracked_cold_matches_jax(trial, rt):
     cold_case(trial, rt)
 
 
+def test_reg_tracked_simple_bounds_matches_exact_tier():
+    """TIKHONOV with a simple-bounds level, whose factor the damping skips:
+    the port's tracker damps general level k with ``reg[k + 1]``, as the
+    port's exact tier does (``lexlsi.py:261``).  So its cold solve gives the
+    exact tier's statuses, and so does a warm step from the cold solution
+    through the carried factorization, which the tracker's own damped
+    trips resolve; every solved endpoint is a fixed point of the exact
+    tier's iteration.  Each level has its own factor, so a shift by one level
+    would show.  Not held against the JAX tracker, which damps with
+    ``reg[k]`` there (``lexls_tpu/tracker.py:715``)."""
+    rng = np.random.default_rng(540)
+    prob = jgen.random_inequality_hierarchy(rng, 10, [4, 5, 4, 4], ranks=[4, 3, 3, 2],
+                                            simple_bounds=True, equality_fraction=0.1)
+    reg = _t(np.array([0.0, 0.02, 0.08, 0.3]))
+    params = lt.ParametersLexLSI(regularization_type=lt.RegularizationType.TIKHONOV,
+                                 max_number_of_factorizations=64)
+    struct, B, d0 = lt.Structure.of(prob), 6, prob.dims[0]
+    A0 = np.stack([prob.A for _ in range(B)])
+    A0[:, d0:] += 1e-2 * rng.standard_normal(A0[:, d0:].shape)
+    A1 = A0.copy()  # a warm step of a slow drift, which the trips resolve
+    A1[:, d0:] += 1e-6 * rng.standard_normal(A0[:, d0:].shape)
+    lb, ub = _t(np.tile(prob.lb, (B, 1))), _t(np.tile(prob.ub, (B, 1)))
+    kw = dict(struct=struct, params=params)
+
+    def check(tracked, exact, A):
+        np.testing.assert_array_equal(tracked.status.numpy(), exact.status.numpy())
+        solved = tracked.status == 0
+        assert int(solved.sum()) >= B // 2 and bool(torch.isfinite(tracked.x).all())
+        s1 = _fixed_point(tracked, A, lb, ub, reg, struct, params)
+        assert bool((s1.status[solved] == 0).all())
+        np.testing.assert_array_equal(s1.ctr_type[solved].numpy(),
+                                      tracked.ctr_type[solved].numpy())
+        assert np.abs((s1.v - tracked.v)[solved].numpy()).max(initial=0.0) < 1e-7
+
+    init = lt.batched_initial_arrays(prob, B, "cpu")
+    cold_t, _ = lt.solve_core_cold_tracked(_t(A0), lb, ub, *init, reg=reg, **kw)
+    cold = lt.solve_core_batched(_t(A0), lb, ub, *init, reg, x_guess_specified=False,
+                                 v0_specified=False, **kw)
+    check(cold_t, cold, _t(A0))
+
+    Ag, bg, fm, fv = _masked_general(_t(A0), lb, ub, cold.ctr_type, struct)
+    carried = ttrk.carried_from_lexqr(_factorize_masked(Ag, bg, fm, fv, struct, params, reg),
+                                      struct)
+    ct, st_, ns = _device_initial_activation(_t(A1), lb, ub, cold.ctr_type, struct)
+    warm = (_t(A1), lb, ub, ct, st_, ns, cold.x, torch.zeros_like(lb))
+    stats = []
+    warm_t, _ = lt.solve_core_tracked(*warm, carried=carried, reg=reg, stats=stats, **kw)
+    assert stats[0][1] < B  # the trips resolved some instances themselves
+    check(warm_t, lt.solve_core_batched(*warm, reg, x_guess_specified=True,
+                                        v0_specified=False, **kw), _t(A1))
+
+
 # ---------------------------------------------------------------------------
 # A warm step
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("name", ["RegularizationType", "TerminationStatus", "CtrType",
-                                  "OperationType"])
+                                  "OperationType", "ObjectiveType"])
 def test_enum_codes_match(name):
     ours, ref = getattr(TT, name), getattr(JT, name)
     assert {e.name: int(e) for e in ours} == {e.name: int(e) for e in ref}
@@ -79,3 +79,37 @@ def test_convert_round_trip():
     out = convert.state_to_numpy(state)
     assert set(out) == {f.name for f in dataclasses.fields(state)}
     np.testing.assert_array_equal(out["status"], [15, 15])
+
+
+@pytest.mark.parametrize("simple", [False, True])
+def test_hierarchy_helpers_match(simple):
+    """``level_slice``, ``level_of_row`` and ``initial_ctr_type`` (equality
+    rows active, a general row with a zero normal not) against the JAX
+    package's, on the same problem."""
+    prob = jgen.random_inequality_hierarchy(np.random.default_rng(5), 7, [4, 3, 3],
+                                            simple_bounds=simple, equality_fraction=0.4)
+    prob.A[-1] = 0.0
+    prob.lb[-1] = prob.ub[-1] = 0.5
+    ours = convert.hierarchy_from_numpy(prob.A, prob.lb, prob.ub, prob.dims, prob.n_var,
+                                        simple, prob.var_idx)
+    for k in range(prob.n_obj):
+        assert ours.level_slice(k) == prob.level_slice(k)
+    np.testing.assert_array_equal(ours.level_of_row(), prob.level_of_row())
+    got, want = ours.initial_ctr_type(), prob.initial_ctr_type()
+    assert got.dtype == want.dtype and int((got == int(TT.CtrType.ACTIVE_EQ)).sum()) > 1
+    np.testing.assert_array_equal(got, want)
+
+
+def test_equality_hierarchy_matches():
+    """``EqualityHierarchy``: the same fields, defaults and refusals as the
+    JAX package's."""
+    rng = np.random.default_rng(6)
+    A, b = rng.standard_normal((5, 4)), rng.standard_normal(5)
+    kw = dict(A=A, b=b, dims=(2, 3), fixed_idx=[1, 3], fixed_val=[0.5, -1.0])
+    ours, ref = TT.EqualityHierarchy(**kw), JT.EqualityHierarchy(**kw)
+    for f in dataclasses.fields(ref):
+        np.testing.assert_array_equal(getattr(ours, f.name), getattr(ref, f.name))
+    assert (ours.n_var, ours.n_obj, ours.n_fixed, ours.level_slice(1)) == (
+        ref.n_var, ref.n_obj, ref.n_fixed, ref.level_slice(1))
+    with pytest.raises(TT.LexLSError):
+        TT.EqualityHierarchy(A=A, b=b[:4], dims=(2, 3))
