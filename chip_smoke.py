@@ -71,7 +71,14 @@ Phases:
      (kernel B2) and the tracker on the 46 unregularized ones in float32,
      B2 against its plain version in float64, and the trace and
      ``use_phase1_v0`` at the bench shape, card against CPU.  ``python3
-     chip_smoke.py golden`` runs this phase alone.
+     chip_smoke.py golden`` runs this phase alone;
+ 13. the equality layer (``solve_equality_batched``, ``LexLSE``; B1 once
+     per level): ``bench_extra.py``'s config 1 (n=88, dims (33, 3, 2, 97),
+     B=384) in float32 and float64 against the CPU, with equality solves/s,
+     B1's launches and own time per call and the host's time to issue a
+     call; the least-norm solves at its width (first three levels);
+     ``eq_00..05`` of the golden corpus through ``LexLSE``.  ``python3
+     chip_smoke.py equality`` runs this phase alone.
 
 Prints one JSON line with the per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -107,14 +114,26 @@ GOLDEN_F32 = dict(max_number_of_factorizations=250, tol_linear_dependence=1e-7,
 # (d): the bench shape at B=64 with a budget of 40 factorizations (its cold
 # solve takes some 200 passes, minutes for the CPU side of the comparison)
 GOLDEN_TRACE_B, GOLDEN_TRACE_BUDGET = 64, 40
+# bench_extra.py's config 1 (bench_extra.py:77-114): the equality l-QR at
+# test_01's general levels, B perturbed copies, timed over EQ_REPS calls; its
+# least-norm check takes the first three levels (50 free variables) on a few
+# instances
+EQ_N, EQ_DIMS, EQ_TOL, EQ_REPS = 88, (33, 3, 2, 97), 1e-7, 20
+EQ_LN_LEVELS, EQ_LN_B = 3, 8
 # the card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
 # memory rate, and the float32 rate outside the tensor cores
 PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
 
 
-def _cuda_ms(fn, reps, warmup=True):
-    """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events),
-    after one warm-up run unless the caller has just run ``fn``."""
+def _card():
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _cuda_times(fn, reps, warmup=True):
+    """Milliseconds of ``fn`` in each of ``reps`` runs (CUDA events), after
+    one warm-up run unless the caller has just run ``fn``."""
     if warmup:
         fn()
     torch.cuda.synchronize()
@@ -126,7 +145,12 @@ def _cuda_ms(fn, reps, warmup=True):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def _cuda_ms(fn, reps, warmup=True):
+    """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events)."""
+    return statistics.median(_cuda_times(fn, reps, warmup))
 
 
 def _nbytes(*tensors):
@@ -1826,6 +1850,203 @@ def run_golden(dev, report):
         raise SystemExit("golden phase failed:\n  " + "\n  ".join(misses))
 
 
+def _config1_problem(dtype, dev):
+    """``bench_extra.py:84-95``: one random equality hierarchy (seed 0,
+    n=88, dims (33, 3, 2, 97), every level at full rank), then B copies of
+    A and of b, each perturbed by 1e-3."""
+    from lexls_tpu_torch.oracle import random_equality_hierarchy
+
+    rng = np.random.default_rng(0)
+    A, b, _, _, _ = random_equality_hierarchy(rng, EQ_N, list(EQ_DIMS))
+    As = np.stack([A + 1e-3 * rng.standard_normal(A.shape) for _ in range(B)])
+    bs = np.stack([b + 1e-3 * rng.standard_normal(b.shape) for _ in range(B)])
+    return (torch.as_tensor(As, device=dev).to(dtype).contiguous(),
+            torch.as_tensor(bs, device=dev).to(dtype).contiguous())
+
+
+def run_equality(dev, report):
+    """The equality layer on the card: ``solve_equality_batched`` and
+    ``LexLSE``, each one l-QR through kernel B1 (once per level) and a
+    solve.  (a) ``bench_extra.py``'s config 1 (n=88, dims (33, 3, 2, 97),
+    B=384, tolerance 1e-7) in float32 and float64, against the same call on
+    the CPU (B1's plain version): float64 permutations, ranks and pivot
+    rows identical and x to 1e-10; float32 ranks identical on all but a
+    tenth of the instances and x to 1e-3 where they agree.  Equality
+    solves/s (B over the median of EQ_REPS calls by CUDA events, with min
+    and max), B1's launches and own device time per call (events around
+    its launches) against the call's, the host's time to issue one call,
+    and the call's kernels and device time (torch.profiler).  (b) least
+    norm at config 1's width, its first three levels (50 free variables),
+    on EQ_LN_B instances in float64: ``least_norm=True`` and ``LexLSE``
+    options 1, 2 and 3 (TIKHONOV, zero factors), card against CPU to 1e-9
+    and the options against each other to 1e-8.  (c) the golden ``eq_00..05``
+    through ``LexLSE`` in float64: option 0's per-level residual norms to
+    1e-8 of the C++ gold's, options 1, 2 and the general norm with M = I
+    leave them there, ranks as on the CPU."""
+    from lexls_tpu_torch import (EqualityHierarchy, LexLSE, ParametersLexLSE,
+                                 RegularizationType, solve_equality_batched)
+    from lexls_tpu_torch.io import dat as io_dat
+    from lexls_tpu_torch.ops import _build, factorize_fast_batched, fused_active_set, \
+        panel_factorize
+
+    t_phase = time.perf_counter()
+    params = ParametersLexLSE(tol_linear_dependence=EQ_TOL)
+    p = len(EQ_DIMS)
+    misses = []
+
+    def solve_counted(key, fn):
+        """``fn()`` with the launch counts zeroed just before and read just
+        after, filed under ``key``."""
+        panel_factorize.launches = fused_active_set.launches = 0
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {"panel_factorize": panel_factorize.launches,
+                    "fused_active_set": fused_active_set.launches}
+        for k in report:
+            report[k].setdefault("launches_by_path", {})[key] = launches[k]
+        return out, launches
+
+    # (a) config 1, card against CPU, then timed
+    for dtype in (torch.float64, torch.float32):
+        name = "f64" if dtype == torch.float64 else "f32"
+        A, b = _config1_problem(dtype, dev)
+        call = lambda: solve_equality_batched(A, b, EQ_DIMS, params)  # noqa: E731
+        x, launches = solve_counted(f"equality_{name}", call)
+        print(f"[equality (a) {name}] solve_equality_batched, config 1, B={B}: launches "
+              f"{launches} (B1 expected {p}: one a level)")
+        if launches["panel_factorize"] != p or launches["fused_active_set"]:
+            misses.append(f"(a) {name}: launches {launches}")
+        f_card = factorize_fast_batched(A, b, EQ_DIMS, params)
+        t0 = time.perf_counter()
+        x_cpu = solve_equality_batched(A.cpu(), b.cpu(), EQ_DIMS, params)
+        cpu_s = time.perf_counter() - t0
+        f_cpu = factorize_fast_batched(A.cpu(), b.cpu(), EQ_DIMS, params)
+        same_rank = (f_card.ranks.cpu() == f_cpu.ranks).all(1)
+        same = same_rank & (f_card.perm.cpu() == f_cpu.perm).all(1) \
+            & (f_card.rank_row.cpu() == f_cpu.rank_row).all(1)
+        err = (x.cpu() - x_cpu).abs().amax(1)
+        xerr = float(err[same_rank].max()) if bool(same_rank.any()) else float("inf")
+        ranks = f_card.ranks[0].tolist()
+        print(f"[equality (a) {name}] card against CPU ({cpu_s:.3f} s on the CPU): ranks "
+              f"differing on {int((~same_rank).sum())}/{B}, pivot orders on "
+              f"{int((~same).sum())}/{B}; max |x err| where the ranks agree {xerr:.3e}; "
+              f"ranks of instance 0 {ranks}; x finite {bool(torch.isfinite(x).all())}, shape "
+              f"{tuple(x.shape)}")
+        good = bool(torch.isfinite(x).all()) and tuple(x.shape) == (B, EQ_N)
+        if dtype == torch.float64:
+            good = good and bool(same.all()) and xerr <= 1e-10
+        else:
+            good = good and int((~same_rank).sum()) <= B // 10 and xerr <= 1e-3
+        if not good:
+            misses.append(f"(a) {name}: card and CPU disagree")
+
+        times = _cuda_times(call, EQ_REPS)
+        med = statistics.median(times)
+        _build.LAUNCH_EVENTS = events = []
+        try:
+            for _ in range(EQ_REPS):
+                call()
+            torch.cuda.synchronize()
+        finally:
+            _build.LAUNCH_EVENTS = None
+        own = sum(s.elapsed_time(e) for n_, s, e in events if "panel" in n_) / EQ_REPS
+        host = []
+        for _ in range(EQ_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        rows, _ = _profile(call)
+        dev_ms = sum(r[0] for r in rows) / 1e3
+        h = statistics.median(host)
+        print(f"[equality (a) {name}] {B / med * 1e3:.1f} equality solves/s (B over the median "
+              f"call, {med:.4f} ms, of {EQ_REPS} by CUDA events; min {min(times):.4f}, max "
+              f"{max(times):.4f} ms); B1 {len(events) / EQ_REPS:g} launches a call, its own "
+              f"device time {own:.4f} ms a call ({100 * own / med:.1f}% of the call); the call's "
+              f"device time {dev_ms:.4f} ms in {sum(r[1] for r in rows)} kernel launches "
+              f"(torch.profiler); the host's time to issue one call {h:.4f} ms (median of "
+              f"{EQ_REPS}, no synchronise): the {'host' if h > dev_ms else 'card'} sets the "
+              f"pace; {_card()}")
+
+    # (b) least norm at config 1's width: its first three levels
+    A64, b64 = _config1_problem(torch.float64, dev)
+    rows_ln = sum(EQ_DIMS[:EQ_LN_LEVELS])
+    dims_ln = EQ_DIMS[:EQ_LN_LEVELS]
+    A_ln, b_ln = A64[:EQ_LN_B, :rows_ln].contiguous(), b64[:EQ_LN_B, :rows_ln].contiguous()
+    (x_ln, x0), launches = solve_counted("equality_least_norm", lambda: (
+        solve_equality_batched(A_ln, b_ln, dims_ln, params, least_norm=True),
+        solve_equality_batched(A_ln, b_ln, dims_ln, params)))
+    x_ln_cpu = solve_equality_batched(A_ln.cpu(), b_ln.cpu(), dims_ln, params, least_norm=True)
+    ln_err = float((x_ln.cpu() - x_ln_cpu).abs().max())
+    moved = float((x_ln - x0).abs().max())
+    tik = ParametersLexLSE(tol_linear_dependence=EQ_TOL,
+                           regularization_type=RegularizationType.TIKHONOV)
+    opt_card_cpu, opt_spread = 0.0, 0.0
+    for i in range(EQ_LN_B):
+        prob = EqualityHierarchy(A=A_ln[i].cpu().numpy(), b=b_ln[i].cpu().numpy(), dims=dims_ln)
+        xs = {}
+        for opt in (1, 2, 3):
+            prm = tik if opt == 3 else params
+            card = LexLSE(prob, prm, device=dev).solve(opt).x
+            cpu = LexLSE(prob, prm, device="cpu").solve(opt).x
+            opt_card_cpu = max(opt_card_cpu, float(np.abs(card - cpu).max()))
+            xs[opt] = card
+        opt_spread = max(opt_spread, float(np.abs(xs[1] - xs[2]).max()),
+                         float(np.abs(xs[3] - xs[2]).max()),
+                         float(np.abs(xs[2] - x_ln[i].cpu().numpy()).max()))
+    print(f"[equality (b)] least norm, dims {dims_ln}, n={EQ_N}, {EQ_LN_B} instances, f64: "
+          f"least_norm=True card against CPU {ln_err:.3e} (launches {launches}; it moves x by "
+          f"{moved:.3e} from the basic solution); LexLSE options 1, 2, 3 card against CPU "
+          f"{opt_card_cpu:.3e}, against each other and least_norm=True {opt_spread:.3e}")
+    if ln_err > 1e-9 or opt_card_cpu > 1e-9 or opt_spread > 1e-8 or moved < 1e-6 \
+            or launches["panel_factorize"] != 2 * EQ_LN_LEVELS:
+        misses.append(f"(b) least norm: {ln_err:.3e}, {opt_card_cpu:.3e}, {opt_spread:.3e}, "
+                      f"moved {moved:.3e}, launches {launches}")
+
+    # (c) the golden equality corpora through LexLSE
+    with open(os.path.join(GOLDEN, "index.json")) as fh:
+        index = json.load(fh)
+    cases = []
+    for i in range(6):
+        name = f"eq_{i:02d}"
+        prob = io_dat.to_equality(io_dat.load_dat_python(os.path.join(GOLDEN,
+                                                                      index[name]["dat"])))
+        with open(os.path.join(GOLDEN, name + ".json")) as fh:
+            cases.append((name, prob, np.asarray(json.load(fh)["v_norms"], np.float64)))
+
+    def golden_card():
+        out = []
+        for _, prob, _ in cases:
+            s_card, n = LexLSE(prob, device=dev), prob.n_var
+            out.append([s_card.solve(0), s_card.solve(1), s_card.solve(2),
+                        s_card.solve_general_norm(np.eye(n), np.zeros(n))])
+        return out
+
+    card_results, launches = solve_counted("equality_golden", golden_card)
+    worst, ok = 0.0, 0
+    for (name, prob, gold), results in zip(cases, card_results):
+        cpu = LexLSE(prob, device="cpu").solve(0)
+        errs = [float(np.abs(np.array([np.linalg.norm(r.v[prob.level_slice(k)])
+                                       for k in range(prob.n_obj)]) - gold).max())
+                for r in results]
+        worst = max(worst, *errs)
+        good = max(errs) <= 1e-8 and np.array_equal(results[0].ranks, cpu.ranks)
+        ok += good
+        if not good:
+            misses.append(f"(c) {name}: |d v_k| {errs}, ranks {results[0].ranks} (CPU "
+                          f"{cpu.ranks})")
+    print(f"[equality (c)] golden eq_00..05 through LexLSE, f64: {ok}/6 (options 0, 1, 2 and "
+          f"the general norm, largest |d ||v_k||| {worst:.3e}; ranks as on the CPU); launches "
+          f"{launches}")
+    if launches["panel_factorize"] < 4 * sum(sum(d > 0 for d in c[1].dims) for c in cases):
+        misses.append(f"(c): B1 launched {launches['panel_factorize']} times")
+    print(f"[equality] phase wall {time.perf_counter() - t_phase:.1f} s")
+    if misses:
+        raise SystemExit("equality phase failed:\n  " + "\n  ".join(misses))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU",
@@ -1840,9 +2061,7 @@ def main():
         has_triton = f"yes ({triton.__version__})"
     except ImportError:
         has_triton = "no"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()[0]
+    smi = _card()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {name}, "
           f"triton {has_triton}")
     print(smi)
@@ -1875,6 +2094,7 @@ def main():
         "new_paths": lambda: run_new_paths(dev, report),
         "regularized": lambda: run_regularized(dev, report),
         "golden": lambda: run_golden(dev, report),
+        "equality": lambda: run_equality(dev, report),
     }
     # with phase names as arguments, only those run and no result is printed
     # (for work on one kernel); with none, as the check runs it, all do

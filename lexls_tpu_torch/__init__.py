@@ -8,10 +8,12 @@ natively batched exact tier, which factorizes through B1 in every
 iteration and runs every regularization type (the tracker TIKHONOV and
 TIKHONOV_CG).  Over the exact tier, the host API of one hierarchy:
 ``solve``, ``solve_lambda``, ``solve_collect_wrong_sign``, the working-set
-replay (``wset``) and the ``.dat`` corpus I/O (``io``); their ``device``
-is the card unless the caller passes ``device="cpu"``.  It imports torch
-and NumPy only; ``lexls_tpu`` (JAX) is the reference that the tests hold
-it against.
+replay (``wset``) and the ``.dat`` corpus I/O (``io``); beside them the
+equality façade ``LexLSE`` and ``solve_equality_batched``, one l-QR
+through B1 and the basic, least-norm or general-norm solve.  Their
+``device`` is the card unless the caller passes ``device="cpu"``.  It
+imports torch and NumPy only; ``lexls_tpu`` (JAX) is the reference that
+the tests hold it against.
 """
 
 __version__ = "0.1.0"
@@ -43,6 +45,7 @@ from .lexlsi import (
     solve_lambda,
 )
 from . import io
+from .api import LexLSE, LexLSEResult, solve_equality_batched
 from .parallel import batched_initial_arrays, solve_batched
 from .sequence import solve_sequence_batched_fused, solve_sequence_batched_native
 from .tracker import Carried, bootstrap_carried, solve_core_cold_tracked, solve_core_tracked
@@ -52,6 +55,8 @@ __all__ = [
     "CtrType",
     "EqualityHierarchy",
     "InequalityHierarchy",
+    "LexLSE",
+    "LexLSEResult",
     "LexLSError",
     "LexLSIResult",
     "LexLSIState",
@@ -76,6 +81,7 @@ __all__ = [
     "solve_core_fused",
     "solve_batched",
     "solve_core_tracked",
+    "solve_equality_batched",
     "solve_lambda",
     "solve_sequence_batched_fused",
     "solve_sequence_batched_native",

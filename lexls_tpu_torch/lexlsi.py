@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import lexlse
 from .types import (
     CtrType,
     LexLSError,
@@ -319,8 +320,6 @@ def _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
     regularization, unless a guess is given), v, working set and step.
     With ``use_phase1_v0`` the guess is required and counts no
     factorization (``lexlsi.py:487-501``)."""
-    from . import lexlse
-
     B, m, n = A.shape
     dev = A.device
     ctr_type, stamp, next_stamp = ctr_type0, stamp0, next_stamp0
@@ -420,11 +419,10 @@ def _row_multipliers(lam_all, Agm, fixed_mask, struct: Structure):
     user row order, from those over the general rows, ``lam_all`` (B, p,
     m - d0): a simple-bounds row takes its variable's multiplier,
     -A_fix^T lam where the row fixes it and 0 elsewhere
-    (``lexlse.py:1171-1174``)."""
+    (:func:`lexlse.fixed_multipliers`)."""
     if not struct.d0:
         return lam_all
-    lam_fixed = -torch.einsum("bmn,bpm->bpn", Agm, lam_all)
-    lam_fixed = torch.where(fixed_mask[:, None, :], lam_fixed, 0.0)
+    lam_fixed = lexlse.fixed_multipliers(lam_all, Agm, fixed_mask)
     return torch.cat([lam_fixed[:, :, list(struct.var_idx)], lam_all], 2)
 
 
@@ -678,8 +676,6 @@ def _lambda_sweep(f, Ag, ctr_type, stamp, struct: Structure, params: ParametersL
     or, under TIKHONOV_1, one regularized objective at a time
     (``lexlse.objective_sensitivity_regularized``), then the removal
     selection.  Returns (found, row (-1 where none), selected value)."""
-    from . import lexlse
-
     if params.regularization_type == RegularizationType.TIKHONOV_1:
         lam_all = torch.stack([lexlse.objective_sensitivity_regularized(f, j)
                                for j in range(len(f.dims))], 1)
@@ -700,8 +696,6 @@ def _verify_with_f(s: LexLSIState, A, Ag, f, alive, struct: Structure,
     handling.  With ``use_phase1_v0`` iteration 0 keeps phase 1's step and
     runs no removal sweep.  Instances that are not ``alive`` keep their
     state, their trace included."""
-    from . import lexlse
-
     B, m, _ = A.shape
     i32 = torch.int32
     iota_m = torch.arange(m, device=A.device)
@@ -836,8 +830,6 @@ def get_lambda(A, lb, ub, ctr_type, reg, struct: Structure,
     B1 (damped by ``reg`` under regularization); the multipliers come from
     the factorization's residuals under every type, TIKHONOV_1 included, as
     the reference's debug λ-matrix overload (``lexlse.h:770-861``)."""
-    from . import lexlse
-
     full_fp32()
     A, lb, ub = A.contiguous(), lb.contiguous(), ub.contiguous()
     Ag, bg, fixed_mask, fixed_val = _masked_general(A, lb, ub, ctr_type, struct)

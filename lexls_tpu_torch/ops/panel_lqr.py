@@ -441,11 +441,18 @@ def factorize_fast_batched(
         null_space = _gather_cols(null_space, col_at)
     return LexQR(
         lod=lod_phys, hh=hh, perm=col_at, rank_row=rank_row,
-        ranks=torch.stack(ranks, 1), first_col=torch.stack(first_cols, 1),
+        ranks=_stack_levels(ranks, B, dev), first_col=_stack_levels(first_cols, B, dev),
         total_rank=col_index, fixed_mask=fixed_mask, fixed_val=fixed_val,
         null_space=null_space, X_mu=X_mu, residual_mu=residual_mu,
         reg_factors=reg_factors if track_mu else A.new_zeros(B, 0),
         dims=tuple(dims), n_var=n)
+
+
+def _stack_levels(per_level, B: int, dev):
+    """(B, p) int32 from p per-level (B,) tensors; (B, 0) without levels."""
+    if not per_level:
+        return torch.zeros(B, 0, dtype=torch.int32, device=dev)
+    return torch.stack(per_level, 1)
 
 
 def _gather_cols(M, idx):

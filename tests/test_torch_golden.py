@@ -9,8 +9,8 @@ the status, the per-level constraint-violation norms to 1e-8, the
 factorization count where that file asserts it (warm and sequence
 fixtures, not ``ineq_*``: both Python packages take more factorizations
 than the C++ gold on ``ineq_03/08/13/19``), x to 1e-7 on the regularized
-fixtures; the equality corpora through ``factorize_fast_batched`` and
-``lexlse.solve``.  No JAX: the parser check alone reads the JAX package's
+fixtures; the equality corpora through ``LexLSE`` (options 0, 1 and 2
+and the general norm).  No JAX: the parser check alone reads the JAX package's
 parser, inside its test.
 """
 
@@ -22,9 +22,7 @@ import pytest
 import torch
 
 import lexls_tpu_torch as lt
-from lexls_tpu_torch import lexlse
 from lexls_tpu_torch.io import dat as io_dat
-from lexls_tpu_torch.ops import factorize_fast_batched
 
 torch.set_num_threads(1)
 
@@ -117,20 +115,37 @@ def test_warm_sequence_golden(name):
                                    atol=1e-8, err_msg=step)
 
 
+def _equality_fixture(name):
+    prob = io_dat.to_equality(io_dat.load_dat_python(os.path.join(GOLDEN, _index()[name]["dat"])))
+    assert isinstance(prob, lt.EqualityHierarchy)
+    return prob, _gold(name)["v_norms"]
+
+
+def _residual_norms(prob, v):
+    return [float(np.linalg.norm(v[prob.level_slice(k)])) for k in range(prob.n_obj)]
+
+
 @pytest.mark.parametrize("name", [f"eq_{i:02d}" for i in range(6)])
 def test_equality_golden(name):
-    """Equality corpora: one l-QR through ``factorize_fast_batched`` (kernel
+    """Equality corpora through the port's ``LexLSE``: one l-QR (kernel
     B1's plain version) and the basic solve; per-level residual norms to
     1e-8."""
-    index = _index()
-    prob = io_dat.to_equality(io_dat.load_dat_python(os.path.join(GOLDEN, index[name]["dat"])))
-    assert isinstance(prob, lt.EqualityHierarchy)
-    f = factorize_fast_batched(torch.as_tensor(prob.A)[None], torch.as_tensor(prob.b)[None],
-                               prob.dims)
-    x = lexlse.solve(f)[0].numpy()
-    norms = [float(np.linalg.norm(prob.A[prob.level_slice(k)] @ x - prob.b[prob.level_slice(k)]))
-             for k in range(prob.n_obj)]
-    np.testing.assert_allclose(norms, _gold(name)["v_norms"], atol=1e-8, err_msg=name)
+    prob, gold = _equality_fixture(name)
+    res = lt.LexLSE(prob, device="cpu").solve(0)
+    np.testing.assert_allclose(res.v, prob.A @ res.x - prob.b, atol=1e-12, rtol=0)
+    np.testing.assert_allclose(_residual_norms(prob, res.v), gold, atol=1e-8, err_msg=name)
+
+
+@pytest.mark.parametrize("name", [f"eq_{i:02d}" for i in range(6)])
+def test_equality_golden_least_norm(name):
+    """The least-norm options 1 and 2, and the general norm with M = I,
+    m_rhs = 0, move x within the solution set: every level's residual norm
+    stays the gold's to 1e-8."""
+    prob, gold = _equality_fixture(name)
+    s = lt.LexLSE(prob, device="cpu")
+    n = prob.n_var
+    for res in (s.solve(1), s.solve(2), s.solve_general_norm(np.eye(n), np.zeros(n))):
+        np.testing.assert_allclose(_residual_norms(prob, res.v), gold, atol=1e-8, err_msg=name)
 
 
 def test_dat_parser_matches_jax_package(tmp_path):
