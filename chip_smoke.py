@@ -78,11 +78,22 @@ Phases:
      B1's launches and own time per call and the host's time to issue a
      call; the least-norm solves at its width (first three levels);
      ``eq_00..05`` of the golden corpus through ``LexLSE``.  ``python3
-     chip_smoke.py equality`` runs this phase alone.
+     chip_smoke.py equality`` runs this phase alone;
+ 14. config 5, independent hierarchies sharded across devices
+     (``BASELINE.md:38``): a one-rank NCCL process group and
+     ``make_host_mesh(1, 1)``, then ``make_sharded_solver_2d`` in the
+     ``xla``, ``fused`` and ``tracked`` modes on the bench problem at
+     B=10,240 in float32, cold, each mode's state identical to its unsharded
+     call and its metrics exact, with cold solves/s beside the same call at
+     B=384, launches, the device's busy share and peak memory, and the
+     metrics' all-reduce timed; ``make_sharded_sequence_solver`` in every
+     mode (T=3); the modes against each other in float64 (B=256).
+     ``python3 chip_smoke.py sharded`` runs this phase alone.
 
 Prints one JSON line with the per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-when there is no CUDA device or any phase fails.  With phase names as
+when there is no CUDA device, when the package ``lexls_tpu_torch`` is not
+beside it (exit code 1), or when any phase fails.  With phase names as
 arguments (``python3 chip_smoke.py panel fused``) only those phases run
 and no result is printed.
 """
@@ -204,9 +215,10 @@ def _active_set_flops(res, dims, n, m):
     return float((its * per_it + sweeps * per_sweep).sum())
 
 
-def _bench_problem(dtype, dev):
+def _bench_problem(dtype, dev, Bn=B):
     """The workload of ``bench.py:133-166``: one random 4x30 hierarchy over
-    100 variables, B perturbed copies, and a drift stream shared by all."""
+    100 variables, ``Bn`` perturbed copies (the first B of any larger batch
+    are the B of a smaller one), and a drift stream shared by all."""
     from lexls_tpu_torch.oracle import random_inequality_hierarchy
     from lexls_tpu_torch.types import ParametersLexLSI
 
@@ -218,7 +230,7 @@ def _bench_problem(dtype, dev):
                                        tight_fraction=0.3)
     drifts = 1e-3 * np.cumsum(
         np.random.default_rng(1).standard_normal((T_MAX,) + prob.A.shape), axis=0)
-    base = np.stack([prob.A + 1e-3 * rng.standard_normal(prob.A.shape) for _ in range(B)])
+    base = prob.A + 1e-3 * rng.standard_normal((Bn,) + prob.A.shape)
     t = lambda a: torch.as_tensor(a, device=dev).to(dtype)  # noqa: E731
     return prob, params, t(base), t(drifts), t(prob.lb), t(prob.ub)
 
@@ -2047,12 +2059,233 @@ def run_equality(dev, report):
         raise SystemExit("equality phase failed:\n  " + "\n  ".join(misses))
 
 
+# config 5 (BASELINE.md:38, __graft_entry__.py:137-140): independent
+# hierarchies sharded across devices, the bench problem at SH_B copies,
+# against the same calls at B; each mode's cold solves timed SH_REPS times,
+# its warm sequences SH_T steps deep; the modes against each other in
+# float64 on the first SH_B64 instances; SH_BUDGET factorizations bound the
+# profiled calls of the exact tier and the tracker (a whole cold solve is
+# some 10^5 launches, whose trace takes the profiler minutes to digest)
+SH_B, SH_REPS, SH_T, SH_B64, SH_BUDGET = 10240, 3, 3, 256, 4
+SH_MODES = ("xla", "fused", "tracked")
+
+
+def run_sharded(dev, report):
+    """Config 5 through the sharded solvers on a one-rank NCCL process
+    group (a file store in a temporary directory; ``make_host_mesh(1, 1)``):
+    the card's machine has one GPU, so the all-reduces run at world size 1.
+    See :func:`sharded_checks`."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lexls_tpu_torch import make_host_mesh
+
+    t_phase = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(1, 1)
+        print(f"[sharded] NCCL process group of {dist.get_world_size()} rank, mesh {mesh}")
+        sharded_checks(dev, report, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"[sharded] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def _same_state(a, b):
+    """Whether every tensor field of two solver states is identical."""
+    import dataclasses
+
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a) if torch.is_tensor(getattr(a, f.name)))
+
+
+def sharded_checks(dev, report, mesh):
+    """For each mode, ``make_sharded_solver_2d`` on SH_B cold instances of
+    the bench problem in float32: driven once with the launch counts zeroed
+    just before and read just after (and the peak device memory of that
+    call), its state identical (bitwise) to the mode's unsharded call and
+    its metrics equal to the sums over that state; cold solves/s at SH_B and
+    at B (CUDA events, median of SH_REPS; the driven call is the first of
+    SH_B's); the device's busy share (torch.profiler; a whole call of B2, the
+    first SH_BUDGET passes of the exact tier and of the tracker).  The
+    metrics' reduction timed alone.  Then ``make_sharded_sequence_solver``
+    in every mode at T=SH_T (the tracked mode with ``bench.py``'s knobs), and
+    the three modes against each other in float64 on SH_B64 instances:
+    statuses identical, per-level |v| within 1e-8."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from lexls_tpu_torch import (Structure, make_sharded_sequence_solver,
+                                 make_sharded_solver_2d, solve_batched, solve_core_cold_tracked,
+                                 solve_core_fused)
+    from lexls_tpu_torch.ops import fused_active_set, panel_factorize
+    from lexls_tpu_torch.parallel.batch import _mesh_groups, _reduce_metrics
+
+    prob, params, base, drifts, lb, ub = _bench_problem(torch.float32, dev, SH_B)
+    struct = Structure.of(prob)
+    reg = torch.as_tensor(prob.regularization, device=dev)
+    cold = _cold_inputs(struct, base, drifts, lb, ub)
+    flags = dict(struct=struct, params=params)
+    unsharded = {
+        "xla": lambda *a: solve_batched(*a, **flags),
+        "fused": lambda *a: solve_core_fused(*a, **flags, x_guess_specified=False,
+                                             v0_specified=False),
+        "tracked": lambda *a: solve_core_cold_tracked(*a[:8], **flags, reg=a[8])[0],
+    }
+    misses = []
+
+    def counted(fn):
+        panel_factorize.launches = fused_active_set.launches = 0
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"panel_factorize": panel_factorize.launches,
+                     "fused_active_set": fused_active_set.launches}
+
+    def args(Bn, inputs=cold):
+        return [a[:Bn] for a in inputs] + [reg]
+
+    short = dataclasses.replace(params, max_number_of_factorizations=SH_BUDGET)
+    rates = {}
+    for mode in SH_MODES:
+        fn = make_sharded_solver_2d(mesh, struct, params, mode=mode)
+        ref = unsharded[mode](*args(SH_B))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        (st, metrics), launches = counted(lambda: fn(*args(SH_B)))
+        end.record()
+        end.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        for k in report:
+            report[k].setdefault("launches_by_path", {})[f"sharded_{mode}"] = launches[k]
+        same = _same_state(st, ref)
+        want = {"solved": int((ref.status == 0).sum()), "max_iterations": int(ref.it.max()),
+                "sum_iterations": int(ref.it.sum())}
+        got = {k: int(v) for k, v in metrics.items()}
+        big = [start.elapsed_time(end)] + _cuda_times(lambda: fn(*args(SH_B)), SH_REPS - 1,
+                                                      warmup=False)
+        small = _cuda_times(lambda: fn(*args(B)), SH_REPS)
+        ms_big, ms_small = statistics.median(big), statistics.median(small)
+        rates[mode] = (SH_B / ms_big * 1e3, B / ms_small * 1e3)
+        if mode == "fused":
+            rows, wall_ms = _profile(lambda: fn(*args(SH_B)))
+            what = "a whole call"
+        else:
+            fshort = make_sharded_solver_2d(mesh, struct, short, mode=mode)
+            rows, wall_ms = _profile(lambda: fshort(*args(SH_B)))
+            what = f"a call with a budget of {SH_BUDGET} factorizations"
+        dev_ms = sum(r[0] for r in rows) / 1e3
+        b1_ms = sum(r[0] for r in rows if "panel_factorize_kernel" in r[2]) / 1e3
+        b2_ms = sum(r[0] for r in rows if "fused_kernel" in r[2]) / 1e3
+        print(f"[sharded {mode}] config 5, B={SH_B} float32, cold: {rates[mode][0]:.1f} cold "
+              f"solves/s ({ms_big:.3f} ms a call, median of {SH_REPS} by CUDA events; all "
+              f"{[round(t, 3) for t in big]}) against {rates[mode][1]:.1f} at B={B} "
+              f"({ms_small:.3f} ms; all {[round(t, 3) for t in small]}); solved "
+              f"{want['solved']}/{SH_B}; iterations mean {float(ref.it.double().mean()):.2f} "
+              f"max {want['max_iterations']}; launches {launches} a call; peak device memory "
+              f"{peak:.1f} MiB (torch.cuda.max_memory_allocated, inputs and the unsharded "
+              f"reference included); device busy {100 * dev_ms / wall_ms:.1f}% of the profiled "
+              f"wall ({what}: {dev_ms:.3f} ms of device time in {sum(r[1] for r in rows)} "
+              f"launches, of which B1 {b1_ms:.3f} ms and B2 {b2_ms:.3f} ms; {wall_ms:.3f} ms "
+              f"profiled); state identical to the unsharded call: "
+              f"{same}; metrics {got}")
+        x_ok = tuple(st.x.shape) == (SH_B, N_VAR) and bool(torch.isfinite(st.x).all())
+        if not same or got != want or not x_ok or launches[
+                "panel_factorize" if mode == "xla" else "fused_active_set"] == 0:
+            misses.append(f"{mode}: identical {same}, metrics {got} (want {want}), x finite "
+                          f"and in shape {x_ok}, launches {launches}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    _phase1(*cold[:3], struct, params)
+    torch.cuda.synchronize()
+    print(f"[sharded] phase 1 alone (the cold factorization through B1 and the basic solve) at "
+          f"B={SH_B}: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, of "
+          f"which {base_mib:.1f} MiB was allocated before it")
+    groups = _mesh_groups(mesh)
+    red_ms = _cuda_ms(lambda: _reduce_metrics(st.status, st.it, groups), 20)
+    one = torch.zeros(2, dtype=torch.int64, device=dev)
+    ar_ms = _cuda_ms(lambda: dist.all_reduce(one, group=groups[0]), 20)
+    print(f"[sharded] the metrics' reduction over B={SH_B}: {red_ms:.4f} ms (the local sums and "
+          f"two all-reduces per mesh dimension, {len(groups)} dimensions; median of 20 by CUDA "
+          f"events); one NCCL all-reduce of two int64 at world size 1: {ar_ms:.4f} ms")
+    print(f"[sharded] cold solves/s B={SH_B} / B={B}: "
+          + "; ".join(f"{m} {a:.1f} / {b:.1f} ({a / b:.2f}x)" for m, (a, b) in rates.items()))
+
+    # the warm sequences, sharded
+    m = prob.n_ctr
+    A_seq = (base[:, None] + drifts[None, :SH_T]).contiguous()
+    lb_seq, ub_seq = lb.expand(SH_B, SH_T, m), ub.expand(SH_B, SH_T, m)
+    for mode in SH_MODES:
+        fn = make_sharded_sequence_solver(mesh, struct, params, mode=mode,
+                                          **(TRACKED if mode == "tracked" else {}))
+        t0 = time.perf_counter()
+        (outs, metrics), launches = counted(lambda: fn(A_seq, lb_seq, ub_seq, reg))
+        wall = time.perf_counter() - t0
+        for k in report:
+            report[k]["launches_by_path"][f"sharded_seq_{mode}"] = launches[k]
+        x, status, it = outs[0], outs[2], outs[3]
+        got = {k: int(v) for k, v in metrics.items()}
+        want = {"solved": int((status == 0).sum()), "max_iterations": int(it.max()),
+                "sum_iterations": int(it.sum())}
+        print(f"[sharded sequence {mode}] B={SH_B} T={SH_T} float32: {wall:.3f} s host wall; "
+              f"solved per step {(status == 0).sum(0).tolist()} of {SH_B}; iterations per step, "
+              f"mean {[round(float(c), 2) for c in it.double().mean(0)]}, max "
+              f"{it.amax(0).tolist()}; launches {launches}; metrics {got}")
+        if got != want or tuple(x.shape) != (SH_B, SH_T, N_VAR) \
+                or not bool(torch.isfinite(x).all()) or sum(launches.values()) == 0:
+            misses.append(f"sequence {mode}: metrics {got} (want {want}), launches {launches}")
+
+    # float64: the three modes against each other
+    prob64, params64, base64, drifts64, lb64, ub64 = _bench_problem(torch.float64, dev, SH_B64)
+    inputs64 = _cold_inputs(struct, base64, drifts64, lb64, ub64)
+    res = {mode: make_sharded_solver_2d(mesh, struct, params64, mode=mode)(
+        *args(SH_B64, inputs64))[0] for mode in SH_MODES}
+    norms = {mode: _level_norms(r.v, prob.dims) for mode, r in res.items()}
+    for mode in ("fused", "tracked"):
+        same = bool(torch.equal(res[mode].status, res["xla"].status))
+        dv = float((norms[mode] - norms["xla"]).abs().max())
+        print(f"[sharded f64] B={SH_B64}: {mode} against xla: statuses identical {same}; max "
+              f"|d ||v_k||| {dv:.3e}; solved {int((res[mode].status == 0).sum())}/{SH_B64}")
+        if not same or not dv <= 1e-8:
+            misses.append(f"f64 {mode} against xla: statuses identical {same}, |d v_k| {dv:.3e}")
+    if misses:
+        raise SystemExit("sharded phase failed:\n  " + "\n  ".join(misses))
+
+
+def _cold_inputs(struct, base, drifts, lb, ub):
+    """The cold step of the bench sequence: A, lb, ub, the initial working
+    set, x0 and v0 of every instance."""
+    from lexls_tpu_torch.sequence import _device_initial_activation
+
+    Bn, m, n = base.shape
+    A = (base + drifts[0]).contiguous()
+    lbs, ubs = lb.expand(Bn, m).contiguous(), ub.expand(Bn, m).contiguous()
+    c, s, ns = _device_initial_activation(
+        A, lbs, ubs, torch.zeros(Bn, m, dtype=torch.int32, device=A.device), struct)
+    z = lambda *shape: torch.zeros(*shape, dtype=A.dtype, device=A.device)  # noqa: E731
+    return [A, lbs, ubs, c, s, ns, z(Bn, n), z(Bn, m)]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU",
               file=sys.stderr)
         return 2
-    from lexls_tpu_torch.ops import _build
+    try:
+        from lexls_tpu_torch.ops import _build
+    except ModuleNotFoundError as e:
+        print(f"chip_smoke: {e}: run it from the root of a checkout, beside the package "
+              "lexls_tpu_torch", file=sys.stderr)
+        return 1
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -2095,6 +2328,7 @@ def main():
         "regularized": lambda: run_regularized(dev, report),
         "golden": lambda: run_golden(dev, report),
         "equality": lambda: run_equality(dev, report),
+        "sharded": lambda: run_sharded(dev, report),
     }
     # with phase names as arguments, only those run and no result is printed
     # (for work on one kernel); with none, as the check runs it, all do

@@ -10,7 +10,12 @@ TIKHONOV_CG).  Over the exact tier, the host API of one hierarchy:
 ``solve``, ``solve_lambda``, ``solve_collect_wrong_sign``, the working-set
 replay (``wset``) and the ``.dat`` corpus I/O (``io``); beside them the
 equality façade ``LexLSE`` and ``solve_equality_batched``, one l-QR
-through B1 and the basic, least-norm or general-norm solve.  Their
+through B1 and the basic, least-norm or general-norm solve.  The sequence
+entry points (``solve_sequence``, ``solve_sequence_batched`` and the fused and
+native batched ones) warm-start each step from the last, and the sharded
+factories (``make_sharded_solver``, ``make_sharded_solver_2d``,
+``make_sharded_sequence_solver``, ``make_host_mesh``) split a batch over
+the ranks of a ``torch.distributed`` device mesh.  Their
 ``device`` is the card unless the caller passes ``device="cpu"``.  It
 imports torch and NumPy only; ``lexls_tpu`` (JAX) is the reference that
 the tests hold it against.
@@ -46,8 +51,10 @@ from .lexlsi import (
 )
 from . import io
 from .api import LexLSE, LexLSEResult, solve_equality_batched
-from .parallel import batched_initial_arrays, solve_batched
-from .sequence import solve_sequence_batched_fused, solve_sequence_batched_native
+from .parallel import (batched_initial_arrays, make_host_mesh, make_sharded_solver,
+                       make_sharded_solver_2d, solve_batched)
+from .sequence import (make_sharded_sequence_solver, solve_sequence, solve_sequence_batched,
+                       solve_sequence_batched_fused, solve_sequence_batched_native)
 from .tracker import Carried, bootstrap_carried, solve_core_cold_tracked, solve_core_tracked
 
 __all__ = [
@@ -73,6 +80,10 @@ __all__ = [
     "build_hierarchy_with_bounds",
     "initial_activation",
     "io",
+    "make_host_mesh",
+    "make_sharded_sequence_solver",
+    "make_sharded_solver",
+    "make_sharded_solver_2d",
     "solve",
     "solve_collect_wrong_sign",
     "solve_core",
@@ -83,6 +94,8 @@ __all__ = [
     "solve_core_tracked",
     "solve_equality_batched",
     "solve_lambda",
+    "solve_sequence",
+    "solve_sequence_batched",
     "solve_sequence_batched_fused",
     "solve_sequence_batched_native",
 ]

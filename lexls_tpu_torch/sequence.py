@@ -6,16 +6,23 @@ and with ``tracked=True`` the carried factorization as well).
 Counterpart of ``lexls_tpu/sequence.py``: the JAX package's ``lax.scan``
 over steps is a Python loop here, each step one batched whole solve,
 through the whole-solve tier (kernel B2) or through the exact tier
-(kernel B1 in every iteration).
+(kernel B1 in every iteration).  Every entry point takes tensors, which keep
+their device and dtype, or NumPy arrays, which go to ``device`` (the card
+unless the caller passes ``device="cpu"``; without a card that raises).
+:func:`make_sharded_sequence_solver` runs them on each rank of a
+``torch.distributed`` device mesh.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-from .lexlsi import Structure, full_fp32, solve_core_batched, solve_core_fused
+from .lexlsi import Structure, full_fp32, host_device, solve_core_batched, solve_core_fused
+from .parallel.batch import _check_knobs, _check_mode, _local_tensor, _mesh_groups, \
+    _rank_device, _reduce_metrics
 from .types import CtrType, ParametersLexLSI
 
 
@@ -43,6 +50,24 @@ def _device_initial_activation(A, lb, ub, guess_type, struct: Structure):
     return ctr, stamp.to(torch.int32), next_stamp
 
 
+def _sequence_tensors(A_seq, lb_seq, ub_seq, reg, device):
+    """The inputs of a sequence entry point as tensors.  A tensor ``A_seq``
+    keeps its device and dtype, and NumPy arrays beside it follow it; a
+    NumPy ``A_seq`` goes to ``device`` (:func:`lexls_tpu_torch.lexlsi.host_device`)
+    in its own dtype, and the other arrays follow it.  Tensors are never
+    moved."""
+    if not torch.is_tensor(A_seq):
+        A_seq = torch.as_tensor(np.asarray(A_seq), device=host_device(device))
+    dev, dtype = A_seq.device, A_seq.dtype
+
+    def put(a):
+        if a is None or torch.is_tensor(a):
+            return a
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    return A_seq, put(lb_seq), put(ub_seq), put(reg)
+
+
 def _run_sequence(A_seq, lb_seq, ub_seq, struct: Structure, step):
     """The loop over the T steps of a batch of sequences: step 0 cold,
     every later step from the previous step's x and working set.
@@ -68,7 +93,7 @@ def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
                                  params: ParametersLexLSI, tracked: bool = False,
                                  ns_iters: int = 2, cert_tol: Optional[float] = None,
                                  loop_cap: int = 0, trip1_noext: bool = False,
-                                 stats: Optional[list] = None):
+                                 stats: Optional[list] = None, device="cuda"):
     """Batched warm-started sequences through the whole-solve tier.
 
     ``A_seq`` is (B, T, m, n), ``lb_seq``/``ub_seq`` (B, T, m).  Returns
@@ -87,9 +112,11 @@ def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
     given, receives one ``(trips, instances handed to the kernel)`` tuple
     per tracked step.  Regularization raises on both paths: the kernel has
     none, and ``reg`` does not reach the tracker (``sequence.py:217-230``).
+    NumPy inputs go to ``device`` (see :func:`_sequence_tensors`).
     """
     from . import tracker as trk
 
+    A_seq, lb_seq, ub_seq, reg = _sequence_tensors(A_seq, lb_seq, ub_seq, reg, device)
     tkw = dict(struct=struct, params=params, ns_iters=ns_iters, cert_tol=cert_tol, stats=stats)
     carried = None
 
@@ -110,14 +137,80 @@ def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
 
 
 def solve_sequence_batched_native(A_seq, lb_seq, ub_seq, reg, struct: Structure,
-                                  params: ParametersLexLSI):
+                                  params: ParametersLexLSI, device="cuda"):
     """Batched warm-started sequences through the natively batched exact
     tier (:func:`lexls_tpu_torch.solve_core_batched`, kernel B1 in every
     iteration; ``sequence.py:117-165``), every regularization type with
     the factors ``reg``.  ``A_seq`` is (B, T, m, n); same outputs as
-    :func:`solve_sequence_batched_fused`."""
+    :func:`solve_sequence_batched_fused`.  NumPy inputs go to ``device``
+    (see :func:`_sequence_tensors`)."""
+    A_seq, lb_seq, ub_seq, reg = _sequence_tensors(A_seq, lb_seq, ub_seq, reg, device)
+
     def step(t, A, lb, ub, c, s, ns, x, v0):
         return solve_core_batched(A, lb, ub, c, s, ns, x, v0, reg, struct=struct, params=params,
                                   x_guess_specified=t > 0, v0_specified=False)
 
     return _run_sequence(A_seq, lb_seq, ub_seq, struct, step)
+
+
+def solve_sequence_batched(A_seq, lb_seq, ub_seq, reg, struct: Structure,
+                           params: ParametersLexLSI, device="cuda"):
+    """Batched warm-started sequences (``sequence.py:104-113``): ``A_seq``
+    is (B, T, m, n), each output (B, T, ...).  The JAX package's ``vmap``
+    of :func:`solve_sequence`; every tensor of the port carries its batch
+    axis, so here it is the exact tier over the batch,
+    :func:`solve_sequence_batched_native`, every regularization type
+    included."""
+    return solve_sequence_batched_native(A_seq, lb_seq, ub_seq, reg, struct, params,
+                                         device=device)
+
+
+def solve_sequence(A_seq, lb_seq, ub_seq, reg, struct: Structure, params: ParametersLexLSI,
+                   device="cuda"):
+    """One sequence of hierarchies with warm starting (``sequence.py:54-100``).
+
+    ``A_seq`` is (T, m, n), ``lb_seq``/``ub_seq`` (T, m).  Step 0 is a
+    cold solve; step t > 0 starts from step t-1's solution and active set.
+    Returns the stacked per-step (x (T, n), v (T, m), status (T,),
+    iterations (T,), factorizations (T,), ctr_type (T, m)), without a batch
+    axis: the exact tier on a batch of one, as
+    :func:`lexls_tpu_torch.solve_core`.  NumPy inputs go to ``device``."""
+    outs = solve_sequence_batched(A_seq[None], lb_seq[None], ub_seq[None], reg, struct, params,
+                                  device=device)
+    return tuple(o[0] for o in outs)
+
+
+def make_sharded_sequence_solver(mesh, struct: Structure, params: ParametersLexLSI,
+                                 mode: str = "xla", **kw):
+    """Warm-started sequences sharded over a ``torch.distributed`` device
+    mesh (``sequence.py:270-324``): BASELINE config 4 (an IK sequence)
+    composed with config 5 (many independent hierarchies across devices).
+
+    ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh`` (for
+    instance :func:`lexls_tpu_torch.parallel.make_host_mesh`), and the
+    sequence batch is split over every one of its dimensions.  Torch runs
+    one process per device, so the returned ``fn(A_seq, lb_seq, ub_seq,
+    reg) -> (outs, metrics)`` takes **this rank's shard** of the (B, T, m,
+    n) batch, where the JAX package's takes the global array, and returns
+    this rank's outputs: the 6-tuple of :func:`solve_sequence_batched`.
+    ``mode="xla"`` runs :func:`solve_sequence_batched` (the exact tier),
+    ``"fused"`` and ``"tracked"`` :func:`solve_sequence_batched_fused`
+    (``tracked=`` the mode, ``kw`` its knobs: ``ns_iters``, ``cert_tol``,
+    ``loop_cap``, ``trip1_noext``).  NumPy inputs go to the rank's device.
+    Only ``metrics = {"solved", "max_iterations", "sum_iterations"}``,
+    over every step of every sequence, cross ranks: all-reduced over each
+    mesh dimension in turn, the innermost first."""
+    _check_mode(mode)
+    _check_knobs(kw)
+    groups, dev = _mesh_groups(mesh), _rank_device(mesh)
+
+    def fn(A_seq, lb_seq, ub_seq, reg):
+        A_seq = _local_tensor(A_seq, dev)
+        if mode == "xla":
+            outs = solve_sequence_batched(A_seq, lb_seq, ub_seq, reg, struct, params, **kw)
+        else:
+            outs = solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct, params,
+                                                tracked=mode == "tracked", **kw)
+        return outs, _reduce_metrics(outs[2], outs[3], groups)
+
+    return fn
