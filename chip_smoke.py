@@ -250,6 +250,16 @@ def _phase1(A, lbs, ubs, struct, params, x=None, ct=None):
     return _initial_state(A, lbs, ubs, c, s, ns, x0, v0, struct, params, warm, False)
 
 
+def _panel_diff(got, want):
+    """(instances whose pivot order, positions or rank differ, the largest
+    |block| or |hh| error where they agree) of two B1 results."""
+    same = (got[1] == want[1]).all(1) & (got[2] == want[2]).all(1) \
+        & (got[3] == want[3]) & (got[4] == want[4]).all(1)
+    err = max(float((got[0] - want[0]).abs().amax(dim=(1, 2))[same].max()),
+              float((got[5] - want[5]).abs().amax(1)[same].max()))
+    return int((~same).sum()), err
+
+
 def check_panel(dev, report):
     """B1 against panel_factorize_ref on the first level of the bench
     problem with every row active (B=384, dim=30, n=100, rhs = ub),
@@ -271,11 +281,7 @@ def check_panel(dev, report):
         got = panel_factorize(*args, **kw)
         want = panel_factorize_ref(*args, **kw)
         torch.cuda.synchronize()
-        same = (got[1] == want[1]).all(1) & (got[2] == want[2]).all(1) \
-            & (got[3] == want[3]) & (got[4] == want[4]).all(1)
-        err = max(float((got[0] - want[0]).abs().amax(dim=(1, 2))[same].max()),
-                  float((got[5] - want[5]).abs().amax(1)[same].max()))
-        ndiff = int((~same).sum())
+        ndiff, err = _panel_diff(got, want)
         rank0 = int(got[3][0])
         name = "f64" if dtype == torch.float64 else "f32"
         print(f"[B1 {name}] pivot orders differing: {ndiff}/{B}; max |err| where equal: "
@@ -2064,9 +2070,16 @@ def run_equality(dev, report):
 # against the same calls at B; each mode's cold solves timed SH_REPS times,
 # its warm sequences SH_T steps deep; the modes against each other in
 # float64 on the first SH_B64 instances; SH_BUDGET factorizations bound the
-# profiled calls of the exact tier and the tracker (a whole cold solve is
-# some 10^5 launches, whose trace takes the profiler minutes to digest)
+# profiled calls of the exact tier (a whole cold solve is some 10^5
+# launches, whose trace takes the profiler minutes to digest), and the
+# difference of two such calls, at SH_BUDGET and twice that, gives the time
+# of SH_BUDGET passes alone at each B of SH_PASS_BS.  Each kernel is held
+# against its plain version on the last SH_TAIL instances of SH_B, which
+# run in the last waves of blocks: B1 on the launches of one pass of the
+# exact tier, B2 on a launch paused after SH_CAP iterations (its plain
+# version took 888 ms for a warm step of at most 3 iterations at B=384)
 SH_B, SH_REPS, SH_T, SH_B64, SH_BUDGET = 10240, 3, 3, 256, 4
+SH_TAIL, SH_CAP, SH_PASS_BS = 128, 4, (B, 2560, 5120, 10240)
 SH_MODES = ("xla", "fused", "tracked")
 
 
@@ -2104,16 +2117,159 @@ def _same_state(a, b):
                for f in dataclasses.fields(a) if torch.is_tensor(getattr(a, f.name)))
 
 
+def _states_agree(label, got, want, dims):
+    """Two float32 solver states of the same instances by check_fused's
+    float32 rule (:func:`_compare_results`): statuses equal, at most a
+    tenth of the instances in another final working set, x within 1e-3
+    where the working sets agree.  And on every instance the per-level
+    |v|, which the lexicographic optimum fixes whatever the working set,
+    within a tenth of the median distance between neighbouring instances
+    of ``want``: config 5's instances are copies of one hierarchy a 1e-3
+    perturbation apart, so a block that solved its neighbour's instance
+    would pass the rule alone.  Returns a miss, or None."""
+    same = (got.ctr_type == want.ctr_type).all(1)
+    ndiff, status_ok = int((~same).sum()), bool(torch.equal(got.status, want.status))
+    xerr = float((got.x - want.x).abs().amax(1)[same].max())
+    vn, wn = _level_norms(got.v, dims), _level_norms(want.v, dims)
+    dv = float(((vn - wn).abs() / (1 + wn)).max())
+    nbr = float(((wn[1:] - wn[:-1]).abs() / (1 + wn[:-1])).amax(1).median())
+    print(f"{label} statuses equal {status_ok}; final working sets differing {ndiff}/{len(same)}; "
+          f"max |x err| {xerr:.3e} where equal; per-level |v| max |diff| / (1 + |v|) {dv:.3e} "
+          f"(neighbouring instances: median {nbr:.3e})")
+    if status_ok and ndiff <= len(same) // 10 and xerr <= 1e-3 and dv <= nbr / 10:
+        return None
+    return (f"{label} statuses equal {status_ok}, {ndiff} working sets differ, |x err| "
+            f"{xerr:.3e}, |v_k| {dv:.3e} (a tenth of the neighbours' {nbr / 10:.3e})")
+
+
+def _r_dist(a, b):
+    """Per instance of two B2 results: max |R_a - R_b| on b's [:rank, :rank]
+    over max(1, max |R_b|), and whether the two share positions and ranks
+    (only then are their R comparable)."""
+    live = torch.arange(a.rpad.shape[-1], device=a.rpad.device) < b.ranks[..., None]
+    live2 = live[..., :, None] & live[..., None, :]
+    scale = torch.where(live2, b.rpad, 0.0).abs().amax((1, 2, 3)).clamp(min=1.0)
+    err = torch.where(live2, a.rpad - b.rpad, 0.0).abs().amax((1, 2, 3)) / scale
+    return err, (a.posf == b.posf).all(1) & (a.ranks == b.ranks).all(1)
+
+
+def _launches_of(module, name, fn, keep, rows):
+    """Run ``fn`` with the kernel wrapper ``module.name`` spied on; return
+    the last ``keep`` of its launches as (positional inputs, outputs,
+    keywords), each tensor cut to the instances ``rows``.  The spy passes
+    every call through, so the path runs as it would."""
+    import collections
+
+    wrapper, kept = getattr(module, name), collections.deque(maxlen=keep)
+
+    def spy(*args, **kw):
+        out = wrapper(*args, **kw)
+        kept.append(([a[rows].clone() if torch.is_tensor(a) else a for a in args],
+                     [o[rows].clone() for o in out], kw))
+        return out
+
+    # the wrapper counts its launches on the name it is bound to
+    spy.launches = 0
+    setattr(module, name, spy)
+    try:
+        fn()
+    finally:
+        setattr(module, name, wrapper)
+    return list(kept)
+
+
+def _tail_checks(dev, cold, reg, struct, params, short, misses):
+    """B1 and B2 on the last SH_TAIL of SH_B instances against their plain
+    versions on the same rows of the same inputs, by check_panel's and
+    check_fused's float32 rules: B1's launches of the last pass of the
+    exact tier's call cut at SH_BUDGET factorizations, as that call made
+    them at B=SH_B; B2 launched at B=SH_B on the cold phase-1 state, as
+    ``solve_core_fused`` launches it, paused after SH_CAP iterations."""
+    from lexls_tpu_torch import solve_batched
+    from lexls_tpu_torch.lexlsi import active_set_kwargs
+    from lexls_tpu_torch.ops import fused as fused_mod
+    from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref, panel_factorize_ref
+    from lexls_tpu_torch.ops import panel_lqr as panel_mod
+
+    tail = slice(SH_B - SH_TAIL, SH_B)
+    p = len(struct.lexlse_dims)
+    launches = _launches_of(panel_mod, "panel_factorize", lambda: solve_batched(
+        *cold, reg, struct=struct, params=short), p, tail)
+    for k, (args, got, kw) in enumerate(launches):
+        want = panel_factorize_ref(*args, **kw)
+        ndiff, err = _panel_diff(got, want)
+        print(f"[sharded B1 tail] launch {k + 1} of {p} of the last pass (fr={kw['fr']}, "
+              f"B={SH_B}): instances {SH_B - SH_TAIL}..{SH_B - 1} against the plain version: "
+              f"pivot orders differing {ndiff}/{SH_TAIL}; max |err| where equal {err:.3e}")
+        if ndiff > SH_TAIL // 10 or err > 1e-3:
+            misses.append(f"B1 tail, launch {k + 1}: {ndiff} pivot orders differ, |err| {err:.3e}")
+    if len(launches) != p:
+        misses.append(f"B1 tail: {len(launches)} launches kept, want {p}")
+
+    s = _phase1(*cold[:3], struct, params)
+    args = _state_args(cold[0], s)
+    kw = active_set_kwargs(struct, params, dev)
+    got = fused_active_set(*args, iter_cap=SH_CAP, **kw)
+    want = fused_active_set_ref(*(a[tail] for a in args), iter_cap=SH_CAP, **kw)
+    torch.cuda.synchronize()
+    cut = lambda r, rows: fused_mod.ActiveSetResult(*(f[rows] for f in r))  # noqa: E731
+    got = cut(got, tail)
+    try:
+        _compare_results(f"[sharded B2 tail] B={SH_B} iter_cap={SH_CAP}, instances "
+                         f"{SH_B - SH_TAIL}..{SH_B - 1} against the plain version:",
+                         got, want, exact=False)
+    except SystemExit as e:
+        misses.append(str(e))
+    # neighbouring instances lie a 1e-3 perturbation apart, inside that
+    # rule's 1e-3: the kernel must also be far closer to the plain version
+    # of its own instance than neighbours are to each other
+    kerr, ksame = _r_dist(got, want)
+    nerr, nsame = _r_dist(cut(want, slice(1, None)), cut(want, slice(None, -1)))
+    kmax = float(kerr[ksame].max())
+    nmed = float(nerr[nsame].median()) if bool(nsame.any()) else float("inf")
+    print(f"[sharded B2 tail] per instance R err {kmax:.3e} at most; neighbouring instances of the "
+          f"plain version {nmed:.3e} (median of {int(nsame.sum())} comparable pairs)")
+    if not kmax <= nmed / 10:
+        misses.append(f"B2 tail: R err {kmax:.3e} over a tenth of the neighbours' {nmed:.3e}")
+
+
+def _xla_passes(mesh, struct, params, cold, reg):
+    """The exact tier's time per pass at each B of SH_PASS_BS, with phase 1
+    and the first passes taken out: the difference of two sharded xla
+    calls cut at SH_BUDGET and at 2 SH_BUDGET factorizations, over
+    SH_BUDGET; host wall by CUDA events (median of SH_REPS each), device
+    time by the profiler."""
+    import dataclasses
+
+    from lexls_tpu_torch import make_sharded_solver_2d
+
+    fns = [make_sharded_solver_2d(mesh, struct, dataclasses.replace(
+        params, max_number_of_factorizations=k * SH_BUDGET), mode="xla") for k in (1, 2)]
+    for Bn in SH_PASS_BS:
+        a = [t[:Bn] for t in cold] + [reg]
+        wall = [_cuda_ms(lambda: f(*a), SH_REPS) for f in fns]
+        dev_ms = [sum(r[0] for r in _profile(lambda: f(*a))[0]) / 1e3 for f in fns]
+        w, d = (wall[1] - wall[0]) / SH_BUDGET, (dev_ms[1] - dev_ms[0]) / SH_BUDGET
+        print(f"[sharded xla pass] B={Bn}: {w:.3f} ms of host wall a pass (calls cut at "
+              f"{SH_BUDGET} / {2 * SH_BUDGET} factorizations: {wall[0]:.3f} / {wall[1]:.3f} ms), "
+              f"{d:.3f} ms of device time a pass ({dev_ms[0]:.3f} / {dev_ms[1]:.3f} ms): busy "
+              f"{100 * d / w:.1f}% of a pass")
+
+
 def sharded_checks(dev, report, mesh):
     """For each mode, ``make_sharded_solver_2d`` on SH_B cold instances of
     the bench problem in float32: driven once with the launch counts zeroed
     just before and read just after (and the peak device memory of that
-    call), its state identical (bitwise) to the mode's unsharded call and
-    its metrics equal to the sums over that state; cold solves/s at SH_B and
-    at B (CUDA events, median of SH_REPS; the driven call is the first of
-    SH_B's); the device's busy share (torch.profiler; a whole call of B2, the
-    first SH_BUDGET passes of the exact tier and of the tracker).  The
-    metrics' reduction timed alone.  Then ``make_sharded_sequence_solver``
+    call), its state identical (bitwise) to the mode's unsharded call,
+    its metrics equal to the sums over that state, and the fused and the
+    tracked state held against the exact tier's (:func:`_states_agree`);
+    cold solves/s at SH_B and at B (CUDA events, median of SH_REPS; the
+    driven call is the first of SH_B's); the device's busy share
+    (torch.profiler; a whole call of the fused and the tracked mode, the
+    exact tier's call cut at SH_BUDGET factorizations).  Then B1 and B2 on
+    the last instances against their plain versions (:func:`_tail_checks`),
+    the exact tier's time per pass at several B (:func:`_xla_passes`), and
+    the metrics' reduction timed alone.  Then ``make_sharded_sequence_solver``
     in every mode at T=SH_T (the tracked mode with ``bench.py``'s knobs), and
     the three modes against each other in float64 on SH_B64 instances:
     statuses identical, per-level |v| within 1e-8."""
@@ -2152,7 +2308,7 @@ def sharded_checks(dev, report, mesh):
         return [a[:Bn] for a in inputs] + [reg]
 
     short = dataclasses.replace(params, max_number_of_factorizations=SH_BUDGET)
-    rates = {}
+    rates, states = {}, {}
     for mode in SH_MODES:
         fn = make_sharded_solver_2d(mesh, struct, params, mode=mode)
         ref = unsharded[mode](*args(SH_B))
@@ -2175,13 +2331,14 @@ def sharded_checks(dev, report, mesh):
         small = _cuda_times(lambda: fn(*args(B)), SH_REPS)
         ms_big, ms_small = statistics.median(big), statistics.median(small)
         rates[mode] = (SH_B / ms_big * 1e3, B / ms_small * 1e3)
-        if mode == "fused":
+        if mode != "xla":
             rows, wall_ms = _profile(lambda: fn(*args(SH_B)))
             what = "a whole call"
         else:
             fshort = make_sharded_solver_2d(mesh, struct, short, mode=mode)
             rows, wall_ms = _profile(lambda: fshort(*args(SH_B)))
-            what = f"a call with a budget of {SH_BUDGET} factorizations"
+            what = (f"not the timed call: one cut at {SH_BUDGET} factorizations, phase 1 and "
+                    f"the first {SH_BUDGET - 1} passes")
         dev_ms = sum(r[0] for r in rows) / 1e3
         b1_ms = sum(r[0] for r in rows if "panel_factorize_kernel" in r[2]) / 1e3
         b2_ms = sum(r[0] for r in rows if "fused_kernel" in r[2]) / 1e3
@@ -2191,8 +2348,9 @@ def sharded_checks(dev, report, mesh):
               f"({ms_small:.3f} ms; all {[round(t, 3) for t in small]}); solved "
               f"{want['solved']}/{SH_B}; iterations mean {float(ref.it.double().mean()):.2f} "
               f"max {want['max_iterations']}; launches {launches} a call; peak device memory "
-              f"{peak:.1f} MiB (torch.cuda.max_memory_allocated, inputs and the unsharded "
-              f"reference included); device busy {100 * dev_ms / wall_ms:.1f}% of the profiled "
+              f"{peak:.1f} MiB (torch.cuda.max_memory_allocated, inputs, the unsharded "
+              f"reference and the earlier modes' states included); device busy "
+              f"{100 * dev_ms / wall_ms:.1f}% of the profiled "
               f"wall ({what}: {dev_ms:.3f} ms of device time in {sum(r[1] for r in rows)} "
               f"launches, of which B1 {b1_ms:.3f} ms and B2 {b2_ms:.3f} ms; {wall_ms:.3f} ms "
               f"profiled); state identical to the unsharded call: "
@@ -2202,6 +2360,16 @@ def sharded_checks(dev, report, mesh):
                 "panel_factorize" if mode == "xla" else "fused_active_set"] == 0:
             misses.append(f"{mode}: identical {same}, metrics {got} (want {want}), x finite "
                           f"and in shape {x_ok}, launches {launches}")
+        states[mode] = st
+        del ref
+        if mode != "xla":
+            miss = _states_agree(f"[sharded {mode}] B={SH_B} float32 against the xla state:", st,
+                                 states["xla"], prob.dims)
+            if miss:
+                misses.append(miss)
+    del states
+    _tail_checks(dev, args(SH_B)[:8], reg, struct, params, short, misses)
+    _xla_passes(mesh, struct, params, args(SH_B)[:8], reg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mib = torch.cuda.memory_allocated() / 2**20

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from . import lexlse as le
-from .lexlsi import _host_tensor, _np, full_fp32, host_device
+from .lexlsi import _np, full_fp32, host_device, host_tensor
 from .ops import factorize_fast_batched
 from .types import EqualityHierarchy, LexLSError, ParametersLexLSE, RegularizationType
 
@@ -59,16 +59,16 @@ class LexLSE:
             fixed_val = np.zeros(n)
             fixed_val[prob.fixed_idx] = prob.fixed_val
             self._fixed = (torch.as_tensor(fixed_mask, device=self.device)[None],
-                           _host_tensor(fixed_val, self.device, dtype)[None])
+                           host_tensor(fixed_val, self.device, dtype)[None])
         if reg_factors is None and self.params.regularization_type != RegularizationType.NONE:
             reg_factors = np.zeros(prob.n_obj)
-        self._reg = None if reg_factors is None else _host_tensor(reg_factors, self.device,
+        self._reg = None if reg_factors is None else host_tensor(reg_factors, self.device,
                                                                   dtype)
         self._f: Optional[le.LexQR] = None
 
     def factorize(self) -> le.LexQR:
         full_fp32()
-        A, b = (_host_tensor(a, self.device, self.dtype)[None]
+        A, b = (host_tensor(a, self.device, self.dtype)[None]
                 for a in (self.prob.A, self.prob.b))
         self._f = factorize_fast_batched(A, b, self.prob.dims, self.params,
                                          fixed_mask=self._fixed[0], fixed_val=self._fixed[1],
@@ -94,15 +94,15 @@ class LexLSE:
     def solve_general_norm(self, M: np.ndarray, m_rhs: np.ndarray) -> LexLSEResult:
         """min ||M x - m_rhs|| over the solution set (``lexlse.h:1286``)."""
         f = self.factorize()
-        x = le.solve_general_norm(f, _host_tensor(M, self.device, self.dtype),
-                                  _host_tensor(m_rhs, self.device, self.dtype))
+        x = le.solve_general_norm(f, host_tensor(M, self.device, self.dtype),
+                                  host_tensor(m_rhs, self.device, self.dtype))
         return self._result(f, x)
 
     def lambdas(self) -> np.ndarray:
         """λ matrix (m, p): column k = multipliers of objective k."""
         f = self._f or self.factorize()
         # the original columns serve as the fixed variables' data
-        _, lam = le.lambda_matrix(f, _host_tensor(self.prob.A, self.device, self.dtype))
+        _, lam = le.lambda_matrix(f, host_tensor(self.prob.A, self.device, self.dtype))
         return _np(lam[0])
 
     def _result(self, f: le.LexQR, x) -> LexLSEResult:
@@ -122,8 +122,7 @@ def solve_equality_batched(A, b, dims, params: Optional[ParametersLexLSE] = None
     passes ``device="cpu"``."""
     full_fp32()
     params = params or ParametersLexLSE()
-    if not torch.is_tensor(A):
-        dev = host_device(device)
-        A, b = _host_tensor(A, dev, dtype), _host_tensor(b, dev, dtype)
-    f = factorize_fast_batched(A, b.to(A), tuple(int(d) for d in dims), params)
+    A = host_tensor(A, device, dtype)
+    b = host_tensor(b, A.device, A.dtype).to(A)
+    f = factorize_fast_batched(A, b, tuple(int(d) for d in dims), params)
     return le.solve_least_norm(f) if least_norm else le.solve(f)

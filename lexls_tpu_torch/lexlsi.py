@@ -899,20 +899,28 @@ def host_device(device) -> torch.device:
     return dev
 
 
-def _host_tensor(a, device, dtype=None):
-    """A NumPy array on ``device``, in ``dtype`` or, without one, int32."""
-    if dtype is None:
-        return torch.as_tensor(np.asarray(a, np.int32), device=device)
-    return torch.as_tensor(np.asarray(a, np.float64), device=device).to(dtype)
+def host_tensor(a, device, dtype=None):
+    """How host input becomes a tensor, for every entry point of the port.
+    A tensor (or None) is returned as it is: never moved, never cast.  A
+    NumPy array (or anything ``np.asarray`` takes) goes to ``device``
+    (:func:`host_device`), in ``dtype`` when one is given, else as int32
+    when it holds integers and in its own dtype when it holds floats."""
+    if a is None or torch.is_tensor(a):
+        return a
+    a = np.asarray(a)
+    if dtype is None and (np.issubdtype(a.dtype, np.integer) or a.dtype == np.bool_):
+        dtype = torch.int32
+    t = torch.as_tensor(a, device=host_device(device))
+    return t if dtype is None else t.to(dtype)
 
 
 def _at_working_set(prob, res: "LexLSIResult", dtype, device):
     """(A, lb, ub, ctr_type, reg) of one hierarchy at the final working set
     and bounds of ``res``, with a batch axis of one except ``reg``."""
     dev = host_device(device)
-    A, lb, ub, reg = (_host_tensor(a, dev, dtype)
+    A, lb, ub, reg = (host_tensor(a, dev, dtype)
                       for a in (prob.A, res.lb, res.ub, prob.regularization))
-    return A[None], lb[None], ub[None], _host_tensor(res.ctr_type, dev)[None], reg
+    return A[None], lb[None], ub[None], host_tensor(res.ctr_type, dev)[None], reg
 
 
 def solve_core(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, reg,
@@ -1008,9 +1016,9 @@ def solve(prob, params: Optional[ParametersLexLSI] = None, x0=None, v0=None,
     ct0, st0, ns0 = initial_activation(prob, active_guess)
     x0_ = np.zeros(struct.n_var) if x0 is None else x0
     v0_ = np.zeros(struct.m) if v0 is None else v0
-    A, lb, ub, x0_, v0_, reg = (_host_tensor(a, dev, dtype)
+    A, lb, ub, x0_, v0_, reg = (host_tensor(a, dev, dtype)
                                 for a in (prob.A, prob.lb, prob.ub, x0_, v0_, prob.regularization))
-    ct0, st0, ns0 = (_host_tensor(a, dev) for a in (ct0, st0, ns0))
+    ct0, st0, ns0 = (host_tensor(a, dev) for a in (ct0, st0, ns0))
     s = solve_core(A, lb, ub, ct0, st0, ns0, x0_, v0_, reg, struct, params,
                    x0 is not None, v0 is not None)
     log = []

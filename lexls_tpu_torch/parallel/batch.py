@@ -12,12 +12,11 @@ across ranks.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..lexlsi import LexLSIState, Structure, initial_activation, solve_core_batched, \
-    solve_core_fused
+from ..lexlsi import LexLSIState, Structure, host_tensor, initial_activation, \
+    solve_core_batched, solve_core_fused
 from ..tracker import solve_core_cold_tracked
 from ..types import LexLSError, ParametersLexLSI
 
@@ -26,6 +25,12 @@ MODES = ("xla", "fused", "tracked")
 # which the port's CUDA kernels, one block per instance, do not have
 TPU_ONLY = ("tile", "interpret", "vmem_limit_mb", "compact", "tile_b", "compact_rounds",
             "panel_unroll")
+# the options each mode's solve takes: the tracker's, for "tracked"; the cold
+# tracker of the sharded solvers has no loop_cap or trip1_noext (those are
+# its warm steps', which only the sequences run), in the JAX package too
+SOLVER_KNOBS = {"xla": (), "fused": (), "tracked": ("ns_iters", "cert_tol")}
+SEQUENCE_KNOBS = {"xla": (), "fused": (),
+                  "tracked": ("ns_iters", "cert_tol", "loop_cap", "trip1_noext")}
 
 
 def batched_initial_arrays(prob, batch: int, device):
@@ -58,15 +63,19 @@ def solve_batched(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, reg,
                               v0_specified=v0_specified)
 
 
-def _check_mode(mode: str) -> None:
+def _check_options(mode: str, kw: dict, knobs: dict) -> None:
+    """Refuse, when a solver is built, an unknown mode (``ValueError``, as
+    the JAX package) and any option that ``mode`` does not take
+    (``LexLSError`` naming it), the TPU kernels' first."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} (use 'xla', 'fused' or 'tracked')")
-
-
-def _check_knobs(kw: dict) -> None:
     tpu = sorted(set(kw) & set(TPU_ONLY))
     if tpu:
         raise LexLSError(f"options of the TPU kernels have no counterpart in the port: {tpu}")
+    other = sorted(set(kw) - set(knobs[mode]))
+    if other:
+        raise LexLSError(f"mode {mode!r} takes no option {other} (it takes "
+                         f"{list(knobs[mode]) or 'none'})")
 
 
 def _local_solver(struct: Structure, params: ParametersLexLSI, x_guess_specified: bool,
@@ -75,10 +84,10 @@ def _local_solver(struct: Structure, params: ParametersLexLSI, x_guess_specified
     ``mode="xla"`` the exact tier (:func:`solve_batched`, kernel B1),
     ``"fused"`` the whole-solve tier (``solve_core_fused``, kernel B2),
     ``"tracked"`` the tracker's cold solve (``solve_core_cold_tracked``, with
-    ``reg``), its state.  ``kw`` goes to the solve: the tracker's
-    ``ns_iters`` and ``cert_tol``; the TPU kernels' options raise."""
-    _check_mode(mode)
-    _check_knobs(kw)
+    ``reg``), its state.  ``kw`` goes to the solve: for ``"tracked"`` the
+    cold tracker's ``ns_iters`` and ``cert_tol`` (:data:`SOLVER_KNOBS`);
+    any other option raises ``LexLSError``."""
+    _check_options(mode, kw, SOLVER_KNOBS)
     flags = dict(struct=struct, params=params, x_guess_specified=x_guess_specified,
                  v0_specified=v0_specified)
 
@@ -99,14 +108,6 @@ def _rank_device(mesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
-
-
-def _local_tensor(a, device):
-    """A NumPy array on this rank's device, in its own dtype; a tensor (or
-    None) as it is."""
-    if a is None or torch.is_tensor(a):
-        return a
-    return torch.as_tensor(np.asarray(a), device=device)
 
 
 def _mesh_groups(mesh) -> list:
@@ -131,8 +132,12 @@ def _reduce_metrics(status, it, groups) -> dict:
 
 def _sharded(run, groups, dev):
     def fn(A, lb, ub, ctr0, stamp0, next0, x0, v0, reg):
-        args = [_local_tensor(a, dev) for a in (A, lb, ub, ctr0, stamp0, next0, x0, v0, reg)]
-        st = run(*args)
+        # NumPy input (host_tensor): A to this rank's device in its own dtype,
+        # the other floats in A's, the working set as int32
+        A = host_tensor(A, dev)
+        lb, ub, x0, v0, reg = (host_tensor(a, A.device, A.dtype) for a in (lb, ub, x0, v0, reg))
+        ctr0, stamp0, next0 = (host_tensor(a, A.device) for a in (ctr0, stamp0, next0))
+        st = run(A, lb, ub, ctr0, stamp0, next0, x0, v0, reg)
         return st, _reduce_metrics(st.status, st.it, groups)
 
     return fn
@@ -191,3 +196,42 @@ def make_sharded_solver_2d(mesh, struct: Structure, params: ParametersLexLSI,
     first, then over "dcn"."""
     run = _local_solver(struct, params, x_guess_specified, v0_specified, mode, kw)
     return _sharded(run, _mesh_groups(mesh), _rank_device(mesh))
+
+
+def make_sharded_sequence_solver(mesh, struct: Structure, params: ParametersLexLSI,
+                                 mode: str = "xla", **kw):
+    """Warm-started sequences sharded over a ``torch.distributed`` device
+    mesh (``sequence.py:270-324``): BASELINE config 4 (an IK sequence)
+    composed with config 5 (many independent hierarchies across devices).
+
+    ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh`` (for
+    instance :func:`make_host_mesh`), and the sequence batch is split over
+    every one of its dimensions.  Torch runs one process per device, so the
+    returned ``fn(A_seq, lb_seq, ub_seq, reg) -> (outs, metrics)`` takes
+    **this rank's shard** of the (B, T, m, n) batch, where the JAX
+    package's takes the global array, and returns this rank's outputs: the
+    6-tuple of :func:`lexls_tpu_torch.sequence.solve_sequence_batched`.
+    ``mode="xla"`` runs ``solve_sequence_batched`` (the exact tier),
+    ``"fused"`` and ``"tracked"`` ``solve_sequence_batched_fused``
+    (``tracked=`` the mode; ``kw`` the tracker's ``ns_iters``,
+    ``cert_tol``, ``loop_cap`` and ``trip1_noext``, :data:`SEQUENCE_KNOBS`;
+    any other option raises ``LexLSError``).  NumPy
+    inputs go to the rank's device.  Only ``metrics = {"solved",
+    "max_iterations", "sum_iterations"}``, over every step of every
+    sequence, cross ranks: all-reduced over each mesh dimension in turn, the
+    innermost first."""
+    _check_options(mode, kw, SEQUENCE_KNOBS)
+    groups, dev = _mesh_groups(mesh), _rank_device(mesh)
+
+    def fn(A_seq, lb_seq, ub_seq, reg):
+        from ..sequence import solve_sequence_batched, solve_sequence_batched_fused
+
+        A_seq = host_tensor(A_seq, dev)
+        if mode == "xla":
+            outs = solve_sequence_batched(A_seq, lb_seq, ub_seq, reg, struct, params)
+        else:
+            outs = solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct, params,
+                                                tracked=mode == "tracked", **kw)
+        return outs, _reduce_metrics(outs[2], outs[3], groups)
+
+    return fn

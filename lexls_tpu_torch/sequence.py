@@ -9,20 +9,19 @@ through the whole-solve tier (kernel B2) or through the exact tier
 (kernel B1 in every iteration).  Every entry point takes tensors, which keep
 their device and dtype, or NumPy arrays, which go to ``device`` (the card
 unless the caller passes ``device="cpu"``; without a card that raises).
-:func:`make_sharded_sequence_solver` runs them on each rank of a
-``torch.distributed`` device mesh.
+:func:`make_sharded_sequence_solver` (defined beside the other sharded
+solvers in :mod:`lexls_tpu_torch.parallel.batch`) runs them on each rank of
+a ``torch.distributed`` device mesh.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
-from .lexlsi import Structure, full_fp32, host_device, solve_core_batched, solve_core_fused
-from .parallel.batch import _check_knobs, _check_mode, _local_tensor, _mesh_groups, \
-    _rank_device, _reduce_metrics
+from .lexlsi import Structure, full_fp32, host_tensor, solve_core_batched, solve_core_fused
+from .parallel.batch import make_sharded_sequence_solver  # noqa: F401  (JAX's home of it)
 from .types import CtrType, ParametersLexLSI
 
 
@@ -51,21 +50,13 @@ def _device_initial_activation(A, lb, ub, guess_type, struct: Structure):
 
 
 def _sequence_tensors(A_seq, lb_seq, ub_seq, reg, device):
-    """The inputs of a sequence entry point as tensors.  A tensor ``A_seq``
-    keeps its device and dtype, and NumPy arrays beside it follow it; a
-    NumPy ``A_seq`` goes to ``device`` (:func:`lexls_tpu_torch.lexlsi.host_device`)
-    in its own dtype, and the other arrays follow it.  Tensors are never
-    moved."""
-    if not torch.is_tensor(A_seq):
-        A_seq = torch.as_tensor(np.asarray(A_seq), device=host_device(device))
-    dev, dtype = A_seq.device, A_seq.dtype
-
-    def put(a):
-        if a is None or torch.is_tensor(a):
-            return a
-        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
-
-    return A_seq, put(lb_seq), put(ub_seq), put(reg)
+    """The inputs of a sequence entry point as tensors
+    (:func:`lexls_tpu_torch.lexlsi.host_tensor`): a NumPy ``A_seq`` goes to
+    ``device`` in its own dtype, NumPy arrays beside it follow ``A_seq``'s
+    device and dtype, and tensors stay as they are."""
+    A_seq = host_tensor(A_seq, device)
+    return (A_seq,) + tuple(host_tensor(a, A_seq.device, A_seq.dtype)
+                            for a in (lb_seq, ub_seq, reg))
 
 
 def _run_sequence(A_seq, lb_seq, ub_seq, struct: Structure, step):
@@ -179,38 +170,3 @@ def solve_sequence(A_seq, lb_seq, ub_seq, reg, struct: Structure, params: Parame
                                   device=device)
     return tuple(o[0] for o in outs)
 
-
-def make_sharded_sequence_solver(mesh, struct: Structure, params: ParametersLexLSI,
-                                 mode: str = "xla", **kw):
-    """Warm-started sequences sharded over a ``torch.distributed`` device
-    mesh (``sequence.py:270-324``): BASELINE config 4 (an IK sequence)
-    composed with config 5 (many independent hierarchies across devices).
-
-    ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh`` (for
-    instance :func:`lexls_tpu_torch.parallel.make_host_mesh`), and the
-    sequence batch is split over every one of its dimensions.  Torch runs
-    one process per device, so the returned ``fn(A_seq, lb_seq, ub_seq,
-    reg) -> (outs, metrics)`` takes **this rank's shard** of the (B, T, m,
-    n) batch, where the JAX package's takes the global array, and returns
-    this rank's outputs: the 6-tuple of :func:`solve_sequence_batched`.
-    ``mode="xla"`` runs :func:`solve_sequence_batched` (the exact tier),
-    ``"fused"`` and ``"tracked"`` :func:`solve_sequence_batched_fused`
-    (``tracked=`` the mode, ``kw`` its knobs: ``ns_iters``, ``cert_tol``,
-    ``loop_cap``, ``trip1_noext``).  NumPy inputs go to the rank's device.
-    Only ``metrics = {"solved", "max_iterations", "sum_iterations"}``,
-    over every step of every sequence, cross ranks: all-reduced over each
-    mesh dimension in turn, the innermost first."""
-    _check_mode(mode)
-    _check_knobs(kw)
-    groups, dev = _mesh_groups(mesh), _rank_device(mesh)
-
-    def fn(A_seq, lb_seq, ub_seq, reg):
-        A_seq = _local_tensor(A_seq, dev)
-        if mode == "xla":
-            outs = solve_sequence_batched(A_seq, lb_seq, ub_seq, reg, struct, params, **kw)
-        else:
-            outs = solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct, params,
-                                                tracked=mode == "tracked", **kw)
-        return outs, _reduce_metrics(outs[2], outs[3], groups)
-
-    return fn

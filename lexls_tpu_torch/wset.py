@@ -20,6 +20,7 @@ from .lexlsi import (
     _reg_factors,
     full_fp32,
     host_device,
+    host_tensor,
     initial_activation,
 )
 from .types import CtrType, ParametersLexLSI
@@ -52,9 +53,9 @@ def solve_with_working_set(prob, ctr_type: np.ndarray, params: Optional[Paramete
     params = params or ParametersLexLSI()
     dev = host_device(device)
     struct = Structure.of(prob)
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev).to(dtype)  # noqa: E731
+    t = lambda a: host_tensor(a, dev, dtype)  # noqa: E731
     A = t(prob.A)[None]
-    ct = torch.as_tensor(np.asarray(ctr_type, np.int32), device=dev)[None]
+    ct = host_tensor(ctr_type, dev)[None]
     Ag, bg, fixed_mask, fixed_val = _masked_general(A, t(prob.lb)[None], t(prob.ub)[None], ct,
                                                     struct)
     f = _factorize_masked(Ag, bg, fixed_mask, fixed_val, struct, params,

@@ -21,6 +21,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 import jax
@@ -38,7 +39,7 @@ from lexls_tpu.oracle import generate as jgen
 
 import lexls_tpu_torch as lt
 from lexls_tpu_torch import convert
-from lexls_tpu_torch.parallel.batch import TPU_ONLY, _local_solver
+from lexls_tpu_torch.parallel.batch import TPU_ONLY, _local_solver, _sharded
 
 torch.set_num_threads(1)
 
@@ -225,6 +226,45 @@ def test_numpy_inputs_match_tensors(entry):
     assert got[0].device.type == "cpu" and got[0].dtype == torch.float64
     for name, g, w in zip(STATE_FIELDS, got, want):
         assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_numpy_beside_a_tensor_follows_it(entry):
+    """NumPy bounds and factors beside a float32 tensor A take its device
+    and dtype (float64 NumPy is cast, never kept): the result is that of
+    float32 tensors throughout."""
+    base, arrays = _entry_inputs(entry)
+    fn, struct, params = getattr(lt, entry), lt.Structure.of(base), lt.ParametersLexLSI()
+    A32 = torch.as_tensor(arrays[0], dtype=torch.float32)
+    got = fn(A32, *arrays[1:], struct, params)
+    want = fn(*(torch.as_tensor(a, dtype=torch.float32) for a in arrays), struct, params)
+    assert got[0].dtype == torch.float32
+    for name, g, w in zip(STATE_FIELDS, got, want):
+        assert torch.equal(g, w), name
+
+
+def test_sharded_fn_takes_numpy_by_the_same_rule():
+    """The sharded solvers' ``fn`` converts a shard as the sequence drivers
+    do (``lexlsi.host_tensor``): beside a float32 tensor A, NumPy floats in
+    float32 and the working set in int32, on A's device."""
+    seen = {}
+
+    def run(*args):
+        seen.update(zip(("A", "lb", "ub", "c0", "s0", "n0", "x0", "v0", "reg"), args))
+        return SimpleNamespace(status=torch.zeros(2, dtype=torch.int32),
+                               it=torch.ones(2, dtype=torch.int32))
+
+    A = torch.zeros(2, 3, 4, dtype=torch.float32)
+    f64, i64 = np.zeros((2, 3)), np.zeros((2, 3), np.int64)
+    _, metrics = _sharded(run, [], torch.device("cpu"))(
+        A, f64, f64, i64, i64, np.zeros(2, np.int64), np.zeros((2, 4)), f64, np.zeros(2))
+    assert seen["A"] is A
+    for k in ("lb", "ub", "x0", "v0", "reg"):
+        assert seen[k].dtype == torch.float32, k
+    for k in ("c0", "s0", "n0"):
+        assert seen[k].dtype == torch.int32, k
+    assert {k: int(v) for k, v in metrics.items()} == {"solved": 2, "max_iterations": 1,
+                                                         "sum_iterations": 2}
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -438,5 +478,22 @@ def test_tracked_forwards_the_tracker_options():
     want, _ = lt.solve_core_cold_tracked(*args, struct=struct, params=params, **kw)
     for f in STATE_FIELDS:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
-    with pytest.raises(TypeError, match="loop_cap"):
-        _local_solver(struct, params, False, False, "tracked", {"loop_cap": 1})(*args, None)
+    # the cold tracker has no loop_cap (a warm step's option): refused when
+    # the solver is built, not at its first call
+    with pytest.raises(lt.LexLSError, match="loop_cap"):
+        _local_solver(struct, params, False, False, "tracked", {"loop_cap": 1})
+
+
+@pytest.mark.parametrize("build, mode, knob", [
+    (lt.make_sharded_solver, "xla", "ns_iters"),
+    (lt.make_sharded_solver_2d, "fused", "cert_tol"),
+    (lt.make_sharded_solver, "tracked", "trip1_noext"),
+    (lt.make_sharded_sequence_solver, "xla", "ns_iters"),
+    (lt.make_sharded_sequence_solver, "xla", "device"),
+    (lt.make_sharded_sequence_solver, "fused", "loop_cap"),
+], ids=lambda v: getattr(v, "__name__", v))
+def test_options_a_mode_does_not_take_raise(build, mode, knob):
+    """An option that the mode's solve does not take raises ``LexLSError``
+    naming it when the solver is built, before the mesh is touched."""
+    with pytest.raises(lt.LexLSError, match=f"mode '{mode}' takes no option \\['{knob}'\\]"):
+        build(None, None, lt.ParametersLexLSI(), mode=mode, **{knob: 1})
