@@ -88,7 +88,22 @@ Phases:
      B=384, launches, the device's busy share and peak memory, and the
      metrics' all-reduce timed; ``make_sharded_sequence_solver`` in every
      mode (T=3); the modes against each other in float64 (B=256).
-     ``python3 chip_smoke.py sharded`` runs this phase alone.
+     ``python3 chip_smoke.py sharded`` runs this phase alone;
+ 15. the tracker's pyramid (``shrink``) and slab handover
+     (``handover_slab``): (a) the fall profile of ``tools/trk_stats.py``
+     (``loop_cap=0``, ``debug_fall``) at the bench shape, per warm step the
+     iterations, the falls by trip and reason and the instances alive after
+     trips 1-3, which size the pyramid; (b) the tracked sequence at the
+     bench shape with ``loop_cap=0`` without and with the pyramid, and with
+     ``loop_cap=1`` without and with a slab, each against its run without
+     the option, warm solves/s by the slope in interleaved rounds, launches
+     per warm step, and the same runs in float64 (B=256, ``ns_iters=3``
+     so that carries pass float64's certificate); (c) at config 5's
+     B=10,240 five ways (two pyramids) over five warm steps, each step
+     timed, with trips, busy share and peak memory; (d) kernel B2 launched
+     at slab width there against its plain version, and the instances
+     outside the slab bit-identical to the tracker's state.  ``python3 chip_smoke.py
+     slabs`` runs this phase alone.
 
 Prints one JSON line with the per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -131,9 +146,6 @@ GOLDEN_TRACE_B, GOLDEN_TRACE_BUDGET = 64, 40
 # instances
 EQ_N, EQ_DIMS, EQ_TOL, EQ_REPS = 88, (33, 3, 2, 97), 1e-7, 20
 EQ_LN_LEVELS, EQ_LN_B = 3, 8
-# the card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
-# memory rate, and the float32 rate outside the tensor cores
-PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
 
 
 def _card():
@@ -171,8 +183,11 @@ def _nbytes(*tensors):
 def _bound(nbytes, flops):
     """(bound_ms, bound_by): the least time the card could take, the larger
     of the bytes over its memory rate and the operations over its float32
-    rate."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    rate outside the tensor cores (``lexls_tpu_torch/perf.py``, NVIDIA's
+    H100 SXM data sheet)."""
+    from lexls_tpu_torch.perf import H100_HBM_BYTES_S, H100_PEAK_F32
+
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES_S, flops / H100_PEAK_F32
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -324,6 +339,12 @@ def _resume_args(A, r, max_fact):
             r[19:27], r[27:31])
 
 
+def _counters_equal(got, want):
+    """Whether two B2 results agree in every status and counter."""
+    return all(bool((getattr(got, f) == getattr(want, f)).all())
+               for f in ("status", "it", "stamp", "next_stamp", "n_fact"))
+
+
 def _compare_results(label, got, want, exact):
     """Kernel B2's result against another result of the same call (its
     plain version's, or an uninterrupted run's): statuses, iteration
@@ -335,8 +356,7 @@ def _compare_results(label, got, want, exact):
     the largest |x| error."""
     same = (got.ctr_type == want.ctr_type).all(1) & (got.posf == want.posf).all(1) \
         & (got.ranks == want.ranks).all(1)
-    ints_equal = all(bool((getattr(got, f) == getattr(want, f)).all())
-                     for f in ("status", "it", "stamp", "next_stamp", "n_fact"))
+    ints_equal = _counters_equal(got, want)
     xerr = float((got.x - want.x).abs().amax(1)[same].max())
     K = got.rpad.shape[-1]
     live = torch.arange(K, device=got.rpad.device) < want.ranks[..., None]
@@ -2156,8 +2176,9 @@ def _r_dist(a, b):
 def _launches_of(module, name, fn, keep, rows):
     """Run ``fn`` with the kernel wrapper ``module.name`` spied on; return
     the last ``keep`` of its launches as (positional inputs, outputs,
-    keywords), each tensor cut to the instances ``rows``.  The spy passes
-    every call through, so the path runs as it would."""
+    keywords, instances launched), each tensor cut to the instances
+    ``rows``.  The spy passes every call through, so the path runs as it
+    would."""
     import collections
 
     wrapper, kept = getattr(module, name), collections.deque(maxlen=keep)
@@ -2165,7 +2186,7 @@ def _launches_of(module, name, fn, keep, rows):
     def spy(*args, **kw):
         out = wrapper(*args, **kw)
         kept.append(([a[rows].clone() if torch.is_tensor(a) else a for a in args],
-                     [o[rows].clone() for o in out], kw))
+                     [o[rows].clone() for o in out], kw, args[0].shape[0]))
         return out
 
     # the wrapper counts its launches on the name it is bound to
@@ -2176,6 +2197,35 @@ def _launches_of(module, name, fn, keep, rows):
     finally:
         setattr(module, name, wrapper)
     return list(kept)
+
+
+def _b2_against_plain(label, got, want, misses):
+    """B2's result on copies of one hierarchy (config 5's instances, a 1e-3
+    perturbation apart) against its plain version on the same instances:
+    check_fused's float32 rule (:func:`_compare_results`) with every status
+    and counter equal too, and, since neighbouring instances lie inside
+    that rule's 1e-3, each instance's R far closer to the plain version of
+    its own instance than instances are to each other: the largest error
+    at most a tenth of the median distance between neighbouring instances
+    of the plain version.  A block that solved another instance misses.
+    Appends what failed to ``misses``."""
+    from lexls_tpu_torch.ops import fused as fused_mod
+
+    cut = lambda r, rows: fused_mod.ActiveSetResult(*(f[rows] for f in r))  # noqa: E731
+    try:
+        _compare_results(f"{label} against the plain version:", got, want, exact=False)
+    except SystemExit as e:
+        misses.append(str(e))
+    if not _counters_equal(got, want):
+        misses.append(f"{label}: statuses or counters differ from the plain version's")
+    kerr, ksame = _r_dist(got, want)
+    nerr, nsame = _r_dist(cut(want, slice(1, None)), cut(want, slice(None, -1)))
+    kmax = float(kerr[ksame].max())
+    nmed = float(nerr[nsame].median()) if bool(nsame.any()) else float("inf")
+    print(f"{label} per instance R err {kmax:.3e} at most; neighbouring instances of the "
+          f"plain version {nmed:.3e} (median of {int(nsame.sum())} comparable pairs)")
+    if not kmax <= nmed / 10:
+        misses.append(f"{label}: R err {kmax:.3e} over a tenth of the neighbours' {nmed:.3e}")
 
 
 def _tail_checks(dev, cold, reg, struct, params, short, misses):
@@ -2195,7 +2245,7 @@ def _tail_checks(dev, cold, reg, struct, params, short, misses):
     p = len(struct.lexlse_dims)
     launches = _launches_of(panel_mod, "panel_factorize", lambda: solve_batched(
         *cold, reg, struct=struct, params=short), p, tail)
-    for k, (args, got, kw) in enumerate(launches):
+    for k, (args, got, kw, _) in enumerate(launches):
         want = panel_factorize_ref(*args, **kw)
         ndiff, err = _panel_diff(got, want)
         print(f"[sharded B1 tail] launch {k + 1} of {p} of the last pass (fr={kw['fr']}, "
@@ -2212,25 +2262,22 @@ def _tail_checks(dev, cold, reg, struct, params, short, misses):
     got = fused_active_set(*args, iter_cap=SH_CAP, **kw)
     want = fused_active_set_ref(*(a[tail] for a in args), iter_cap=SH_CAP, **kw)
     torch.cuda.synchronize()
-    cut = lambda r, rows: fused_mod.ActiveSetResult(*(f[rows] for f in r))  # noqa: E731
-    got = cut(got, tail)
-    try:
-        _compare_results(f"[sharded B2 tail] B={SH_B} iter_cap={SH_CAP}, instances "
-                         f"{SH_B - SH_TAIL}..{SH_B - 1} against the plain version:",
-                         got, want, exact=False)
-    except SystemExit as e:
-        misses.append(str(e))
-    # neighbouring instances lie a 1e-3 perturbation apart, inside that
-    # rule's 1e-3: the kernel must also be far closer to the plain version
-    # of its own instance than neighbours are to each other
-    kerr, ksame = _r_dist(got, want)
-    nerr, nsame = _r_dist(cut(want, slice(1, None)), cut(want, slice(None, -1)))
-    kmax = float(kerr[ksame].max())
-    nmed = float(nerr[nsame].median()) if bool(nsame.any()) else float("inf")
-    print(f"[sharded B2 tail] per instance R err {kmax:.3e} at most; neighbouring instances of the "
-          f"plain version {nmed:.3e} (median of {int(nsame.sum())} comparable pairs)")
-    if not kmax <= nmed / 10:
-        misses.append(f"B2 tail: R err {kmax:.3e} over a tenth of the neighbours' {nmed:.3e}")
+    _b2_against_plain(f"[sharded B2 tail] B={SH_B} iter_cap={SH_CAP}, instances "
+                      f"{SH_B - SH_TAIL}..{SH_B - 1}",
+                      fused_mod.ActiveSetResult(*(f[tail] for f in got)), want, misses)
+
+
+def _counted(fn):
+    """``fn()`` with the kernels' launch counts zeroed just before and read
+    just after: (its result, {kernel: launches})."""
+    from lexls_tpu_torch.ops import fused_active_set, panel_factorize
+
+    panel_factorize.launches = fused_active_set.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"panel_factorize": panel_factorize.launches,
+                 "fused_active_set": fused_active_set.launches}
 
 
 def _xla_passes(mesh, struct, params, cold, reg):
@@ -2280,7 +2327,6 @@ def sharded_checks(dev, report, mesh):
     from lexls_tpu_torch import (Structure, make_sharded_sequence_solver,
                                  make_sharded_solver_2d, solve_batched, solve_core_cold_tracked,
                                  solve_core_fused)
-    from lexls_tpu_torch.ops import fused_active_set, panel_factorize
     from lexls_tpu_torch.parallel.batch import _mesh_groups, _reduce_metrics
 
     prob, params, base, drifts, lb, ub = _bench_problem(torch.float32, dev, SH_B)
@@ -2296,14 +2342,6 @@ def sharded_checks(dev, report, mesh):
     }
     misses = []
 
-    def counted(fn):
-        panel_factorize.launches = fused_active_set.launches = 0
-        torch.cuda.synchronize()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {"panel_factorize": panel_factorize.launches,
-                     "fused_active_set": fused_active_set.launches}
-
     def args(Bn, inputs=cold):
         return [a[:Bn] for a in inputs] + [reg]
 
@@ -2316,7 +2354,7 @@ def sharded_checks(dev, report, mesh):
         torch.cuda.reset_peak_memory_stats()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        (st, metrics), launches = counted(lambda: fn(*args(SH_B)))
+        (st, metrics), launches = _counted(lambda: fn(*args(SH_B)))
         end.record()
         end.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**20
@@ -2396,7 +2434,7 @@ def sharded_checks(dev, report, mesh):
         fn = make_sharded_sequence_solver(mesh, struct, params, mode=mode,
                                           **(TRACKED if mode == "tracked" else {}))
         t0 = time.perf_counter()
-        (outs, metrics), launches = counted(lambda: fn(A_seq, lb_seq, ub_seq, reg))
+        (outs, metrics), launches = _counted(lambda: fn(A_seq, lb_seq, ub_seq, reg))
         wall = time.perf_counter() - t0
         for k in report:
             report[k]["launches_by_path"][f"sharded_seq_{mode}"] = launches[k]
@@ -2441,6 +2479,368 @@ def _cold_inputs(struct, base, drifts, lb, ub):
         A, lbs, ubs, torch.zeros(Bn, m, dtype=torch.int32, device=A.device), struct)
     z = lambda *shape: torch.zeros(*shape, dtype=A.dtype, device=A.device)  # noqa: E731
     return [A, lbs, ubs, c, s, ns, z(Bn, n), z(Bn, m)]
+
+
+# the slabs phase: the tracked path's knobs (bench.py's ns_iters and
+# trip1_noext), its timing rounds, config 5's depth, how many of a slab's
+# instances B2 is held against its plain version on, and float64's B and
+# ns_iters (with two passes no float64 carry passes its 1e-9 certificate
+# on the bench problem, so neither option would run)
+SLAB_KW = dict(ns_iters=2, trip1_noext=True)
+SLAB_REPS, SLAB_T_BIG, SLAB_TAIL, SLAB_B64, SLAB_NS64 = 5, 6, 128, 256, 3
+
+
+def _round_up(v, q):
+    return max(q, -(-int(v) // q) * q)
+
+
+def _pyramid(alive, Bn, q):
+    """Slab sizes from counts of instances alive after trips 1 and 2 (of
+    B instances), scaled to ``Bn`` and rounded up to multiples of ``q``:
+    strictly decreasing and below ``Bn``."""
+    sizes = []
+    for a in alive:
+        z = _round_up(a * Bn / B, q)
+        if z < (sizes[-1] if sizes else Bn):
+            sizes.append(z)
+    return tuple(sizes)
+
+
+def _slab_of(stats, Bn, q):
+    """A handover slab that the unresolved instances of every warm step of
+    a run without it fit (``stats``: a (trips, handed over) tuple per warm
+    step), rounded up to a multiple of ``q``; half the batch if they do not
+    fit below ``Bn``, and then the steps with more overflow to full
+    width."""
+    z = _round_up(max(n for _, n in stats), q)
+    return z if z < Bn else Bn // 2
+
+
+def _slab_branches(stats, S):
+    """(warm steps that took the slab branch, that overflowed to full
+    width) of a run with ``handover_slab=S``."""
+    handed = [n for _, n in stats]
+    return sum(0 < n <= S for n in handed), sum(n > S for n in handed)
+
+
+def _outs_agree(label, got, want, dims, exact=False):
+    """Two runs of the same sequence or steps, (x, v, status, ..., ctr_type)
+    with instances then steps leading, by :func:`_states_agree` (its
+    neighbour bound included) with each step's instances side by side, so
+    that neighbours are neighbouring instances of one step; in float64
+    (``exact``) also per-level |v| to 1e-8.  Returns a miss, or None."""
+    import types
+
+    def steps(o):
+        f = lambda t: t.transpose(0, 1).reshape(-1, *t.shape[2:])  # noqa: E731
+        return types.SimpleNamespace(x=f(o[0]), v=f(o[1]), status=f(o[2]), ctr_type=f(o[-1]))
+
+    g, w = steps(got), steps(want)
+    miss = _states_agree(label, g, w, dims)
+    if exact:
+        dv = float((_level_norms(g.v, dims) - _level_norms(w.v, dims)).abs().max())
+        print(f"{label} per-level |v| max |diff| {dv:.3e}")
+        if not dv <= 1e-8:
+            miss = miss or f"{label} |v_k| {dv:.3e} over 1e-8"
+    return miss
+
+
+def slab_fall_profile(dev):
+    """(a) ``tools/trk_stats.py`` on the card: the bench sequence (B, float32,
+    T=T_MAX) on the tracked path with ``loop_cap=0`` and ``debug_fall``
+    (its defaults: ``ns_iters=2``, extension on the first trip): per warm
+    step the iteration histogram, the falls by trip and reason, and the
+    instances alive after trips 1, 2 and 3.  Returns those three counts
+    of every warm step."""
+    from lexls_tpu_torch import Structure, solve_core_cold_tracked, solve_core_tracked
+    from lexls_tpu_torch.sequence import _device_initial_activation
+
+    prob, params, base, drifts, lb, ub = _bench_problem(torch.float32, dev, B)
+    struct = Structure.of(prob)
+    cold = _cold_inputs(struct, base, drifts, lb, ub)
+    st, car = solve_core_cold_tracked(*cold, struct=struct, params=params, ns_iters=2)
+    lbs, ubs, v0 = cold[1], cold[2], cold[7]
+    print("[slabs fall profile] step | iterations (1, 2, 3, 4, 5+) | mean | max | falls | "
+          "{fall_trip: n} | {fall_why: n} | alive after trips 1, 2, 3")
+    per_step = []
+    for t in range(1, T_MAX):
+        A = (base + drifts[t]).contiguous()
+        c, s, ns = _device_initial_activation(A, lbs, ubs, st.ctr_type, struct)
+        st, car, (fall, fall_trip, fall_why) = solve_core_tracked(
+            A, lbs, ubs, c, s, ns, st.x, v0, carried=car, struct=struct, params=params,
+            ns_iters=2, loop_cap=0, debug_fall=True)
+        it = st.it
+        hist = [int((it == k).sum()) for k in (1, 2, 3, 4)] + [int((it >= 5).sum())]
+        trips = {int(k): int(n) for k, n in zip(*torch.unique(fall_trip[fall],
+                                                              return_counts=True))}
+        why = {int(k): int(n) for k, n in zip(*torch.unique(fall_why[fall], return_counts=True))}
+        alive = [int(((~fall) & (it > k)).sum() + (fall & (fall_trip // 10 > k)).sum())
+                 for k in (1, 2, 3)]
+        per_step.append(alive)
+        print(f"  {t:2d} | {hist} | {float(it.float().mean()):.3f} | {int(it.max())} | "
+              f"{int(fall.sum())} | {trips} | {why} | {alive}")
+        if not bool((st.status == 0).all()):
+            raise SystemExit(f"slabs fall profile, step {t}: not every solve is PROBLEM_SOLVED")
+    most = [max(col) for col in zip(*per_step)]
+    print(f"[slabs fall profile] most alive after trips 1, 2, 3: {most} of {B}; median "
+          f"{[statistics.median(col) for col in zip(*per_step)]}")
+    return per_step
+
+
+def slab_bench(dev, report, alive):
+    """(b) The tracked sequence at the bench shape (B, float32, T=T_MAX)
+    with ``loop_cap=0`` without and with a pyramid sized from (a), and with
+    ``loop_cap=1`` without and with a handover slab that every warm step's
+    unresolved instances fit: each driven with the launch counts zeroed
+    just before and read just after, held against its run without the
+    option, warm solves/s by the slope in interleaved rounds; then the
+    same runs in float64 at SLAB_B64 with SLAB_NS64 passes.  Each dtype
+    misses when the pyramid ran no slab trip or no warm step took the
+    slab branch."""
+    from lexls_tpu_torch import Structure, solve_sequence_batched_fused
+
+    lo, hi = TS
+    misses = []
+    for dtype, Bn in ((torch.float32, B), (torch.float64, SLAB_B64)):
+        prob, params, base, drifts, lb, ub = _bench_problem(dtype, dev, Bn)
+        struct = Structure.of(prob)
+        m = prob.n_ctr
+        A_seq = (base[:, None] + drifts[None]).contiguous()
+        lb_seq, ub_seq = lb.expand(Bn, T_MAX, m), ub.expand(Bn, T_MAX, m)
+
+        knobs = dict(SLAB_KW, ns_iters=SLAB_NS64) if dtype == torch.float64 else SLAB_KW
+
+        def run(T, stats=None, **kw):
+            return solve_sequence_batched_fused(
+                A_seq[:, :T], lb_seq[:, :T], ub_seq[:, :T], None, struct=struct, params=params,
+                tracked=True, stats=stats, **knobs, **kw)
+
+        shrink = _pyramid(alive, Bn, 8)
+        opts = {"loop_cap=0": dict(loop_cap=0),
+                f"loop_cap=0, shrink={shrink}": dict(loop_cap=0, shrink=shrink),
+                "loop_cap=1": dict(loop_cap=1)}
+        names = list(opts)
+        out, stats, launches = {}, {}, {}
+        for name in names + [None]:
+            if name is None:  # the slab, once loop_cap=1 has shown the stragglers
+                S = _slab_of(stats["loop_cap=1"], Bn, 32)
+                name = f"loop_cap=1, handover_slab={S}"
+                opts[name] = dict(loop_cap=1, handover_slab=S)
+            stats[name] = []
+            out[name], launches[name] = _counted(lambda: run(T_MAX, stats[name], **opts[name]))
+            del stats[name][0]  # the cold step's
+            trips = [t for t, _ in stats[name]]
+            handed = [n for _, n in stats[name]]
+            line = (f"[slabs B={Bn} {str(dtype)[6:]}] {name}: launches {launches[name]} "
+                    f"(T={T_MAX}); "
+                    f"trips per warm step {trips}; handed to B2 {handed}")
+            if "handover_slab" in name:
+                slab, over = _slab_branches(stats[name], S)
+                line += f"; warm steps through the slab {slab}, overflowed to full width {over}"
+                if slab == 0:
+                    misses.append(f"B={Bn} {name}: no warm step took the slab branch")
+                if dtype == torch.float32:
+                    report["fused_active_set"]["launches_by_path"]["slab_384"] = \
+                        launches[name]["fused_active_set"]
+            if "shrink" in name and max(trips) < 2:
+                misses.append(f"B={Bn} {name}: no warm step ran a slab trip")
+            print(line)
+            if not bool((out[name][2] == 0).all()):
+                misses.append(f"B={Bn} {name}: not every solve is PROBLEM_SOLVED")
+        names = list(opts)
+        for name, ref in ((names[1], names[0]), (names[3], names[2])):
+            miss = _outs_agree(f"[slabs B={Bn} {str(dtype)[6:]}] {name} against {ref}:",
+                               out[name], out[ref], prob.dims, exact=dtype == torch.float64)
+            if miss:
+                misses.append(miss)
+        if dtype == torch.float64:
+            miss = _outs_agree(f"[slabs B={Bn} float64] {names[3]} against {names[0]}:",
+                               out[names[3]], out[names[0]], prob.dims, exact=True)
+            if miss:
+                misses.append(miss)
+            continue
+        (_, cold_launches) = _counted(lambda: run(1))
+        keys = [(name, T) for name in names for T in (lo, hi)]
+        times = _sequence_times(lambda key: run(key[1], **opts[key[0]]), keys, SLAB_REPS)
+        for name in names:
+            steps, rates = _warm_rate({T: times[(name, T)] for T in (lo, hi)}, lo, hi)
+            per_step = {k: (n - cold_launches[k]) / (T_MAX - 1)
+                        for k, n in launches[name].items()}
+            print(f"[slabs B={B} float32] {name}: warm solves/s over {SLAB_REPS} rounds "
+                  f"{_spread(rates)}; ms per warm step {_spread(steps)}; kernel launches per "
+                  f"warm step {per_step}")
+    if misses:
+        raise SystemExit("slabs phase (b) failed:\n  " + "\n  ".join(misses))
+
+
+def slab_config5(dev, report, most, typical):
+    """(c) Config 5's B=SH_B, float32: the cold tracked solve once, then
+    SLAB_T_BIG - 1 warm steps through ``solve_core_tracked`` with
+    ``loop_cap=0`` without and with two pyramids scaled from (a), one that
+    the most alive instances fit and one sized to the median step, whose
+    stragglers beyond the slab go to B2, and with
+    ``loop_cap=1`` without and with a slab: each warm step timed by CUDA
+    events, trips a step, peak memory, the device's busy share over warm
+    step 1 run again under the profiler, and the states held against the
+    run without the option; a pyramid that ran no slab trip misses.  (d)
+    B2 at slab width: warm step 1 with the slab run once more with B2's
+    wrapper and the tracker's handover spied on, its first SLAB_TAIL
+    instances against the plain version (:func:`_b2_against_plain`), and
+    the state and carried factors of every instance outside the slab (the
+    unresolved first in stable order, then resolved ones to fill it)
+    identical to the tracker's own before the handover; that launch timed
+    against the same step's launch at full width (``loop_cap=1`` without
+    the slab)."""
+    from lexls_tpu_torch import Structure, solve_core_cold_tracked, solve_core_tracked
+    from lexls_tpu_torch import tracker as trk
+    from lexls_tpu_torch.ops import fused as fused_mod
+    from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
+    from lexls_tpu_torch.sequence import _device_initial_activation
+
+    prob, params, base, drifts, lb, ub = _bench_problem(torch.float32, dev, SH_B)
+    struct = Structure.of(prob)
+    cold = _cold_inputs(struct, base, drifts, lb, ub)
+    lbs, ubs, v0 = cold[1], cold[2], cold[7]
+    st0, car0 = solve_core_cold_tracked(*cold, struct=struct, params=params, ns_iters=2)
+    torch.cuda.synchronize()
+    big, small = _pyramid(most, SH_B, 128), _pyramid(typical, SH_B, 128)
+    opts = {"loop_cap=0": dict(loop_cap=0),
+            f"loop_cap=0, shrink={big}": dict(loop_cap=0, shrink=big),
+            f"loop_cap=0, shrink={small} (median-sized)": dict(loop_cap=0, shrink=small),
+            "loop_cap=1": dict(loop_cap=1)}
+    misses, out, step1 = [], {}, {}
+
+    def warm_inputs(t, st):
+        A = (base + drifts[t]).contiguous()
+        c, s, ns = _device_initial_activation(A, lbs, ubs, st.ctr_type, struct)
+        return (A, lbs, ubs, c, s, ns, st.x, v0)
+
+    def warm(args, car, stats=None, **kw):
+        return solve_core_tracked(*args, carried=car, struct=struct, params=params,
+                                  stats=stats, **SLAB_KW, **kw)
+
+    names = list(opts)
+    for name in names + [None]:
+        if name is None:
+            S = _slab_of(stats, SH_B, 512)
+            name = f"loop_cap=1, handover_slab={S}"
+            opts[name] = dict(loop_cap=1, handover_slab=S)
+        st, car, stats, ms, steps = st0, car0, [], [], []
+        launches = {"panel_factorize": 0, "fused_active_set": 0}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mib = torch.cuda.memory_allocated() / 2**20
+        for t in range(1, SLAB_T_BIG):
+            args = warm_inputs(t, st)
+            if t == 1:
+                step1[name] = (args, car)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            (st, car), counts = _counted(lambda: warm(args, car, stats, **opts[name]))
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            launches = {k: launches[k] + counts[k] for k in counts}
+            steps.append((st.x, st.v, st.status, st.ctr_type))
+            if not bool((st.status == 0).all()):
+                misses.append(f"B={SH_B} {name}, step {t}: not every solve is PROBLEM_SOLVED")
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        out[name] = tuple(torch.stack(f, 1) for f in zip(*steps))
+        rows, wall_ms = _profile(lambda: warm(*step1[name], **opts[name]))
+        dev_ms = sum(r[0] for r in rows) / 1e3
+        line = (f"[slabs B={SH_B} float32] {name}: warm steps {[round(v, 3) for v in ms]} ms "
+                f"(CUDA events); trips per step {[t for t, _ in stats]}; handed to B2 "
+                f"{[n for _, n in stats]}; launches {launches} over {SLAB_T_BIG - 1} warm "
+                f"steps; peak device memory {peak:.1f} MiB, of which {base_mib:.1f} MiB was "
+                f"allocated before the run (inputs, the cold state, earlier runs' states); "
+                f"device busy "
+                f"{100 * dev_ms / wall_ms:.1f}% of warm step 1 run again under the profiler "
+                f"({dev_ms:.3f} ms of device time in {sum(r[1] for r in rows)} launches, "
+                f"{wall_ms:.3f} ms profiled)")
+        if "handover_slab" in name:
+            slab, over = _slab_branches(stats, S)
+            line += f"; warm steps through the slab {slab}, overflowed {over}"
+            report["fused_active_set"]["launches_by_path"]["slab_10240"] = \
+                launches["fused_active_set"]
+            if slab == 0 or launches["fused_active_set"] == 0:
+                misses.append(f"B={SH_B}: the slab branch was not taken")
+        if "shrink" in name and max(t for t, _ in stats) < 2:
+            misses.append(f"B={SH_B} {name}: no warm step ran a slab trip")
+        print(line)
+    names = list(opts)
+    for name, ref in ((names[1], names[0]), (names[2], names[0]), (names[4], names[3])):
+        miss = _outs_agree(f"[slabs B={SH_B} float32] {name} against {ref}:", out[name],
+                           out[ref], prob.dims)
+        if miss:
+            misses.append(miss)
+
+    # (d): B2 at slab width against its plain version, and the scatter
+    name = names[4]
+    handover, seen = trk._handover, []
+
+    def handover_spy(A, s, carried_t, **kw):
+        out = handover(A, s, carried_t, **kw)
+        seen.append((s, carried_t, kw["handover_slab"], out))
+        return out
+
+    trk._handover = handover_spy
+    try:
+        kept = _launches_of(fused_mod, "fused_active_set",
+                            lambda: warm(*step1[name], **opts[name]), 1, slice(None))
+    finally:
+        trk._handover = handover
+    # the same warm step's B2 launch at full width (loop_cap=1 without the slab)
+    kept_full = _launches_of(fused_mod, "fused_active_set",
+                             lambda: warm(*step1[names[3]], **opts[names[3]]), 1, slice(None))
+    if not kept or not kept_full or len(seen) != 1:
+        raise SystemExit(f"slabs (d): warm step 1 launched B2 {len(kept)} times with the slab, "
+                         f"{len(kept_full)} without; {len(seen)} handovers")
+    args_s, got, kw, width = kept[0]
+    args_f = kept_full[0][0]
+    ms = [_cuda_ms(lambda a=a: fused_active_set(*a, **kw), 5)
+          for a in (args_s, args_f, args_f, args_s)]
+    head = [a[:SLAB_TAIL] if torch.is_tensor(a) else a for a in args_s]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = fused_active_set_ref(*head, **kw)
+    end.record()
+    end.synchronize()
+    print(f"[slabs B2 at slab width] B={SH_B}, {name}, warm step 1: B2 launched on {width} "
+          f"instances; the call {ms[0]:.4f} / {ms[3]:.4f} ms at slab width against "
+          f"{ms[1]:.4f} / {ms[2]:.4f} ms for the same step's launch on all {SH_B} (CUDA events, "
+          f"median of 5, in turns); the plain version on the first {SLAB_TAIL} instances "
+          f"{start.elapsed_time(end):.4f} ms")
+    _b2_against_plain(f"[slabs B2 at slab width] instances 0..{SLAB_TAIL - 1} of the slab",
+                      fused_mod.ActiveSetResult(*(o[:SLAB_TAIL] for o in got)), want, misses)
+    s, carried_t, S, (final, carried) = seen[0]
+    resolved = s.status != -1
+    outside = torch.ones(SH_B, dtype=torch.bool, device=dev)
+    outside[torch.argsort(resolved, stable=True)[:S]] = False
+    same = all(torch.equal(a[outside], b[outside]) for a, b in
+               [(getattr(final, f), getattr(s, f)) for f in type(s).__dataclass_fields__]
+               + list(zip(carried, carried_t)))
+    print(f"[slabs B2 at slab width] the {int(outside.sum())} instances outside the slab of "
+          f"{S}: all resolved by the tracker {bool(resolved[outside].all())}; merged state and "
+          f"carried factors identical to the tracker's own {same}")
+    if width != S or S >= SH_B or not same or not bool(resolved[outside].all()):
+        misses.append(f"slab handover: launched on {width} of {SH_B}, slab {S}, outside "
+                      f"identical {same}, resolved {bool(resolved[outside].all())}")
+    if misses:
+        raise SystemExit("slabs phase (c)/(d) failed:\n  " + "\n  ".join(misses))
+
+
+def run_slabs(dev, report):
+    """The tracker's pyramid and slab handover on the card: (a) the fall
+    profile at the bench shape, (b) the options at the bench shape, (c) at
+    config 5's B=SH_B, (d) B2 at slab width against its plain version."""
+    t_phase = time.perf_counter()
+    report["fused_active_set"].setdefault("launches_by_path", {})
+    per_step = slab_fall_profile(dev)
+    most = [max(col) for col in zip(*per_step)][:2]
+    typical = [statistics.median(col) for col in zip(*per_step)][:2]
+    slab_bench(dev, report, most)
+    slab_config5(dev, report, most, typical)
+    print(f"[slabs] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -2497,6 +2897,7 @@ def main():
         "golden": lambda: run_golden(dev, report),
         "equality": lambda: run_equality(dev, report),
         "sharded": lambda: run_sharded(dev, report),
+        "slabs": lambda: run_slabs(dev, report),
     }
     # with phase names as arguments, only those run and no result is printed
     # (for work on one kernel); with none, as the check runs it, all do

@@ -26,11 +26,13 @@ MODES = ("xla", "fused", "tracked")
 TPU_ONLY = ("tile", "interpret", "vmem_limit_mb", "compact", "tile_b", "compact_rounds",
             "panel_unroll")
 # the options each mode's solve takes: the tracker's, for "tracked"; the cold
-# tracker of the sharded solvers has no loop_cap or trip1_noext (those are
-# its warm steps', which only the sequences run), in the JAX package too
+# tracker of the sharded solvers has no loop_cap, trip1_noext, shrink or
+# handover_slab (those are its warm steps', which only the sequences run), in
+# the JAX package too
 SOLVER_KNOBS = {"xla": (), "fused": (), "tracked": ("ns_iters", "cert_tol")}
 SEQUENCE_KNOBS = {"xla": (), "fused": (),
-                  "tracked": ("ns_iters", "cert_tol", "loop_cap", "trip1_noext")}
+                  "tracked": ("ns_iters", "cert_tol", "loop_cap", "trip1_noext", "shrink",
+                              "handover_slab")}
 
 
 def batched_initial_arrays(prob, batch: int, device):
@@ -214,7 +216,8 @@ def make_sharded_sequence_solver(mesh, struct: Structure, params: ParametersLexL
     ``mode="xla"`` runs ``solve_sequence_batched`` (the exact tier),
     ``"fused"`` and ``"tracked"`` ``solve_sequence_batched_fused``
     (``tracked=`` the mode; ``kw`` the tracker's ``ns_iters``,
-    ``cert_tol``, ``loop_cap`` and ``trip1_noext``, :data:`SEQUENCE_KNOBS`;
+    ``cert_tol``, ``loop_cap``, ``trip1_noext``, ``shrink`` and
+    ``handover_slab``, :data:`SEQUENCE_KNOBS`;
     any other option raises ``LexLSError``).  NumPy
     inputs go to the rank's device.  Only ``metrics = {"solved",
     "max_iterations", "sum_iterations"}``, over every step of every

@@ -84,7 +84,8 @@ def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
                                  params: ParametersLexLSI, tracked: bool = False,
                                  ns_iters: int = 2, cert_tol: Optional[float] = None,
                                  loop_cap: int = 0, trip1_noext: bool = False,
-                                 stats: Optional[list] = None, device="cuda"):
+                                 stats: Optional[list] = None, shrink: tuple = (),
+                                 handover_slab: int = 0, device="cuda"):
     """Batched warm-started sequences through the whole-solve tier.
 
     ``A_seq`` is (B, T, m, n), ``lb_seq``/``ub_seq`` (B, T, m).  Returns
@@ -98,7 +99,8 @@ def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
     the carried pivot order, falling back to kernel B2 per instance; x and
     v keep their parity, trajectories may differ where a carry is
     rejected.  ``ns_iters``, ``cert_tol`` (None: 1e-3 at float32, 1e-9 at
-    float64), ``loop_cap`` and ``trip1_noext`` go to
+    float64), ``loop_cap``, ``trip1_noext``, ``shrink`` and
+    ``handover_slab`` go to every warm step's
     :func:`lexls_tpu_torch.tracker.solve_core_tracked`.  ``stats``, when
     given, receives one ``(trips, instances handed to the kernel)`` tuple
     per tracked step.  Regularization raises on both paths: the kernel has
@@ -121,6 +123,7 @@ def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
         else:
             st, carried = trk.solve_core_tracked(A, lb, ub, c, s, ns, x, v0, carried=carried,
                                                  loop_cap=loop_cap, trip1_noext=trip1_noext,
+                                                 shrink=shrink, handover_slab=handover_slab,
                                                  **tkw)
         return st
 

@@ -312,7 +312,7 @@ def _damp_level(W, nsb, hot, rinv, pos, fc_k, rank_k, factor, params: Parameters
 
 def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: ParametersLexLSI,
                        *, ns_iters: int, cert_tol: float, ext_steps: int,
-                       chg: Optional[_Change] = None, reg_factors=None):
+                       chg: Optional[_Change] = None, reg_factors=None, want_why: bool = False):
     """Re-factorize the masked staircase with the carried pivot order,
     absorbing rank growth by greedy pivot extension (``tracker.py:395-814``).
 
@@ -333,8 +333,14 @@ def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: Para
     With ``reg_factors`` (p,), one factor for each level, every level is
     damped (:func:`_damp_level`) before it eliminates the rows below.
 
-    Returns ``(ok (B,), levels, fcs (B, p), pos, ranks, rinv)`` with one
-    :class:`_Level` (or None for an empty level) per level."""
+    With ``want_why`` it also keeps, per instance, why the carry was
+    rejected (``tracker.py:465-699``): at level k the bit ``1 << 3k`` when
+    the certificate failed, ``2 << 3k`` the pivot norms, ``4 << 3k`` the
+    trailing columns.
+
+    Returns ``(ok (B,), levels, fcs (B, p), pos, ranks, rinv, why)`` with one
+    :class:`_Level` (or None for an empty level) per level, and ``why``
+    (B,) int32, or None without ``want_why``."""
     dims = struct.lexlse_dims
     n = struct.n_var
     B = Ag.shape[0]
@@ -348,6 +354,14 @@ def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: Para
     rest = torch.cat([Ag, bg[:, :, None]], 2)                    # (B, mg, n+1)
     iota_k = torch.arange(K, device=dev)
     ok = torch.ones(B, dtype=torch.bool, device=dev)
+    why = torch.zeros(B, dtype=torch.int32, device=dev) if want_why else None
+
+    def reject(ok, passed, bit):
+        nonlocal why
+        if want_why:
+            why = why | (~passed).to(torch.int32) * bit
+        return ok & passed
+
     levels, rinv_out, fcs_list, ranks_out = [], [], [], []
     fc_k = torch.zeros(B, dtype=torch.int32, device=dev)
     eye = torch.eye(K, dtype=dtype, device=dev)
@@ -407,7 +421,7 @@ def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: Para
                        ((alpha * g_b - sb * v_b / alpha) * r2, -one),
                        (torch.sqrt(beta) * v_b, -one)]
         Z, cert = _orthonormalize_z(Gt, live2, ns_iters, us=us)
-        ok = ok & (cert < cert_tol)
+        ok = reject(ok, cert < cert_tol, 1 << (3 * k))
         # certified noise floor of this level's multipliers: the own-level
         # residual Q c - b carries about cert·|b| of frame error plus plain
         # roundoff; entries below it are noise on structurally zero
@@ -480,7 +494,7 @@ def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: Para
         rdiag_inv = torch.diagonal(rinv_new, dim1=1, dim2=2)
         piv_norm2 = torch.where(live_now, 1.0 / torch.clamp(rdiag_inv * rdiag_inv, min=1e-30),
                                 torch.inf)
-        ok = ok & (piv_norm2.amin(1) >= 0.25 * tol_ld)
+        ok = reject(ok, piv_norm2.amin(1) >= 0.25 * tol_ld, 2 << (3 * k))
         # (b) no trailing column above the tolerance remains, floored at
         #     the cancellation noise and at the frame's certified error
         #     (this doubles as the frame-quality filter that bounds an
@@ -488,7 +502,7 @@ def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: Para
         cn = colnorm0 - (W[:, :, :n] * W[:, :, :n]).sum(1)
         beyond = pos >= (fc_k + rank_k)[:, None]
         tol_chk = torch.maximum(tol_eff, 8.0 * cert[:, None] * colnorm0)
-        ok = ok & ~(beyond & (cn >= tol_chk)).any(1)
+        ok = reject(ok, ~(beyond & (cn >= tol_chk)).any(1), 4 << (3 * k))
 
         # the multipliers take the UNdamped R-frame rhs: damping rewrites
         # only the sub-rank head (lexlse.h:316-410)
@@ -526,7 +540,7 @@ def _factorize_carried(Ag, bg, rinv, pos, ranks, struct: Structure, params: Para
         fc_k = fc_k + rank_k
 
     return (ok, levels, torch.stack(fcs_list, 1), pos, torch.stack(ranks_out, 1),
-            torch.stack(rinv_out, 1))
+            torch.stack(rinv_out, 1), why)
 
 
 def _hot_solve(levels, fcs, pos, fixed_mask, fixed_val, struct: Structure):
@@ -608,9 +622,10 @@ def _where_rows(cond, a, b):
 @dataclasses.dataclass
 class _Trip:
     """What one tracker trip hands to the next: the solver state, the
-    carried factorization, the instances that left for kernel B2, and the
+    carried factorization, the instances that left for kernel B2, the
     working-set change the trip committed (one-hot row over all m rows,
-    sign, and for a removal its elimination column and W row)."""
+    sign, and for a removal its elimination column and W row), and when
+    asked why each carry was rejected (:func:`_factorize_carried`)."""
 
     s: LexLSIState
     rinv: torch.Tensor
@@ -621,16 +636,36 @@ class _Trip:
     chg_sign: torch.Tensor
     chg_c: torch.Tensor
     chg_w: torch.Tensor
+    why: Optional[torch.Tensor] = None
+
+
+def _map_rows(fn, *xs):
+    """``fn`` over matching tensors of ``xs``: tensors, or solver states,
+    trip states, carried factorizations and tuples of them, walked field
+    by field (None stays None).  Gathers, scatters and merges of a batch's
+    rows go through it."""
+    x = xs[0]
+    if x is None:
+        return None
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _map_rows(fn, *(getattr(y, f.name) for y in xs))
+                          for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        parts = [_map_rows(fn, *ys) for ys in zip(*xs)]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return fn(*xs)
 
 
 def _trip(c: _Trip, A, *, struct: Structure, params: ParametersLexLSI, ns_iters: int,
-          cert_tol: float, ext_steps: int, nochg: bool, reg=None) -> _Trip:
+          cert_tol: float, ext_steps: int, nochg: bool, reg=None,
+          want_why: bool = False) -> _Trip:
     """One tracker trip over the batch (``tracker.py:1178-1364``): carried
     re-factorization (damped by the general levels' factors ``reg`` under
     regularization), one reference active-set step, committed only for
     alive instances whose carry was accepted.  ``nochg`` drops the
     change-absorption inputs: valid for the first trip of a warm solve,
-    whose carry matches the previous solve's final working set."""
+    whose carry matches the previous solve's final working set.
+    ``want_why`` keeps the rejection reasons in the result's ``why``."""
     B, m, n = A.shape
     d0 = struct.d0
     dtype, dev = A.dtype, A.device
@@ -657,9 +692,9 @@ def _trip(c: _Trip, A, *, struct: Structure, params: ParametersLexLSI, ns_iters:
                              torch.where(fixed_mask[:, None, :], 0.0, A[:, d0:]))
         lv = torch.where(has_g > 0, _row_level(hot_g, struct)[:, None], -1).to(torch.int32)
         chg = _Change(a_row, hot_g, lv, c.chg_sign * has_g, c.chg_c, c.chg_w)
-    ok, levels, fcs, pos_n, ranks_n, rinv_n = _factorize_carried(
-        Agz, bgz, c.rinv, c.pos, c.ranks, struct, params,
-        ns_iters=ns_iters, cert_tol=cert_tol, ext_steps=ext_steps, chg=chg, reg_factors=reg)
+    ok, levels, fcs, pos_n, ranks_n, rinv_n, why = _factorize_carried(
+        Agz, bgz, c.rinv, c.pos, c.ranks, struct, params, ns_iters=ns_iters,
+        cert_tol=cert_tol, ext_steps=ext_steps, chg=chg, reg_factors=reg, want_why=want_why)
 
     x_star = _hot_solve(levels, fcs, pos_n, fixed_mask, fixed_val, struct)
     dx = x_star - s.x
@@ -738,17 +773,30 @@ def _trip(c: _Trip, A, *, struct: Structure, params: ParametersLexLSI, ns_iters:
         # factorization absorbs it analytically
         chg_hot=(at_b | at_r).to(dtype),
         chg_sign=(blocking & commit).to(dtype)[:, None] - (do_remove & commit).to(dtype)[:, None],
-        chg_c=torch.where(cm, chg_c_n, 0.0), chg_w=torch.where(cm, chg_w_n, 0.0))
+        chg_c=torch.where(cm, chg_c_n, 0.0), chg_w=torch.where(cm, chg_w_n, 0.0), why=why)
 
 
 def _alive(s: LexLSIState, fall, max_fact: int):
     return (s.status == _UNKNOWN) & ~fall & ((s.it == 0) | (s.n_fact < max_fact))
 
 
+def _slab_sizes(shrink, B: int, loop_cap: int, debug_fall: bool) -> tuple:
+    """The pyramid's slab sizes (``tracker.py:1377-1396``): strictly
+    decreasing, positive and below B, trimmed to ``loop_cap - 1`` slab
+    trips (the full-width trip is the first of the cap)."""
+    if debug_fall and shrink:
+        raise LexLSError("debug_fall with shrink unsupported")
+    sizes = tuple(int(z) for z in shrink)
+    if any(z <= 0 for z in sizes) or any(a <= b for a, b in zip((B,) + sizes, sizes)):
+        raise LexLSError(f"shrink sizes must be strictly decreasing and < B: {sizes} (B={B})")
+    return sizes[:max(0, loop_cap - 1)] if loop_cap else sizes
+
+
 def _tracked_tail(A, s0: LexLSIState, carried: Carried, *, struct: Structure,
                   params: ParametersLexLSI, ns_iters: int, cert_tol: float, ext_steps: int,
                   chg0=None, loop_cap: int = 0, trip1_noext: bool = False,
-                  stats: Optional[list] = None, reg=None):
+                  stats: Optional[list] = None, reg=None, shrink: tuple = (),
+                  handover_slab: int = 0, debug_fall: bool = False):
     """The tracker loop and the kernel handover, from a batched state
     (phase 1 done, or the mid-solve state of the cold bootstrap;
     ``tracker.py:1092-1604``).
@@ -765,15 +813,35 @@ def _tracked_tail(A, s0: LexLSIState, carried: Carried, *, struct: Structure,
     every level (device tensor), the trips damp each general level and the
     instances left over continue in the exact tier (:func:`_exact_tail`)
     with their own counters, their carried factors invalidated (ranks 0:
-    they fall back at once in the next solve).  ``stats``, when given,
-    receives one ``(trips, instances handed over)`` tuple.  Returns
-    ``(state, carried')``."""
+    they fall back at once in the next solve).
+
+    ``shrink``, strictly decreasing slab sizes below B, runs the loop as a
+    pyramid (``tracker.py:1382-1465``): after the full-width trip, for each
+    size the alive instances move to the front in stable order, the first
+    ``size`` rows are gathered and one trip runs on them if any is alive;
+    the smallest slab then loops on.  Alive instances beyond a slab are
+    marked fallen and finish in B2, so results do not depend on the sizes.
+    The rows scatter back through the inverse order at the end.
+    ``handover_slab`` S (0 < S < B, no regularization): when S or fewer
+    instances are unresolved, B2 and the factor bootstrap run on a slab of
+    S rows, the unresolved first in stable order; above S, at full width
+    (``tracker.py:1515-1571``).
+
+    ``stats``, when given, receives one ``(trips, instances handed over)``
+    tuple, slab trips counted.  Returns ``(state, carried')``, and with
+    ``debug_fall`` (not with ``shrink``) also ``(fall, fall_trip,
+    fall_why)`` (``tracker.py:1349-1359``): the instances that left the
+    loop unresolved, the trip each fell at times 10 plus the op that trip
+    tried to absorb plus 1 (-1 removal, 0 none, 1 activation), and the
+    rejection bits of :func:`_factorize_carried`."""
     B, m, n = A.shape
     d0 = struct.d0
     dtype, dev = A.dtype, A.device
     max_fact = params.max_number_of_factorizations
+    sizes = _slab_sizes(shrink, B, loop_cap, debug_fall)
     reg_g = None if reg is None else (reg[1:] if struct.simple_bounds else reg)
-    kw = dict(struct=struct, params=params, ns_iters=ns_iters, cert_tol=cert_tol, reg=reg_g)
+    kw = dict(struct=struct, params=params, ns_iters=ns_iters, cert_tol=cert_tol, reg=reg_g,
+              want_why=debug_fall)
 
     if chg0 is None:
         chg_hot0 = torch.zeros(B, m, dtype=dtype, device=dev)
@@ -785,50 +853,100 @@ def _tracked_tail(A, s0: LexLSIState, carried: Carried, *, struct: Structure,
               chg_hot=chg_hot0, chg_sign=chg_sign0,
               chg_c=torch.zeros(B, max(m - d0, 1), dtype=dtype, device=dev),
               chg_w=torch.zeros(B, n + 1, dtype=dtype, device=dev))
+    fall_trip = fall_why = torch.zeros(B, dtype=torch.int32, device=dev)
+    trips = 0
+
+    def trip(c, A_c, nochg=False, ext=ext_steps):
+        nonlocal trips, fall_trip, fall_why
+        c_new = _trip(c, A_c, nochg=nochg, ext_steps=ext, **kw)
+        trips += 1
+        if debug_fall:
+            new = c_new.fall & ~c.fall
+            op = c.chg_sign[:, 0].round().to(torch.int32)
+            fall_trip = torch.where(new, trips * 10 + op + 1, fall_trip).to(torch.int32)
+            fall_why = torch.where(new, c_new.why, fall_why)
+        return c_new
+
     # the first trip of a warm solve has no pending change, so its
     # absorption inputs drop out; with trip1_noext its greedy extension
     # too (drift-induced rank growth then fails the trailing-column check
     # and finishes in the kernel)
     nochg = chg0 is None
-    c = _trip(c, A, nochg=nochg, ext_steps=0 if (nochg and trip1_noext) else ext_steps, **kw)
-    trips = 1
+    c = trip(c, A, nochg=nochg, ext=0 if (nochg and trip1_noext) else ext_steps)
+    # the pyramid: each level parks the rows beyond its slab, in the order
+    # that put the alive instances first
+    parked, A_cur = [], A
+    for sz in sizes:
+        alive = _alive(c.s, c.fall, max_fact)
+        if not bool(alive.any()):
+            break
+        order = torch.argsort(~alive, stable=True)
+        tail = order[sz:]
+        # an alive instance beyond the slab finishes in the kernel
+        parked.append((order, _map_rows(lambda a: a[tail], c), alive[tail]))
+        c, A_cur = _map_rows(lambda a: a[order[:sz]], (c, A_cur))
+        c = trip(c, A_cur)
     while (not loop_cap or trips < loop_cap) and bool(_alive(c.s, c.fall, max_fact).any()):
-        c = _trip(c, A, nochg=False, ext_steps=ext_steps, **kw)
-        trips += 1
+        c = trip(c, A_cur)
 
-    s = c.s
+    fall = (c.fall | _alive(c.s, c.fall, max_fact)) if loop_cap else c.fall
+    s, carried_t = c.s, Carried(rinv=c.rinv, pos=c.pos, ranks=c.ranks)
+    for order, t, overflow in reversed(parked):
+        # the slab's rows, then the parked ones, back where ``order`` took them from
+        s, carried_t, fall = _map_rows(
+            lambda h, tl: torch.cat([h, tl]).index_copy(0, order, torch.cat([h, tl])),
+            (s, carried_t, fall), (t.s, Carried(t.rinv, t.pos, t.ranks), t.fall | overflow))
+
     resolved = s.status != _UNKNOWN
-    carried_t = Carried(rinv=c.rinv, pos=c.pos, ranks=c.ranks)
     n_unresolved = int((~resolved).sum())
     if stats is not None:
         stats.append((trips, n_unresolved))
+
+    def result(state, car):
+        return (state, car, (fall, fall_trip, fall_why)) if debug_fall else (state, car)
+
     if n_unresolved == 0:
-        return s, carried_t
+        return result(s, carried_t)
     if reg is not None:
         st_x = _exact_tail(A, s, reg, struct, params)
-        carried_x = Carried(rinv=torch.zeros_like(c.rinv),
+        carried_x = Carried(rinv=torch.zeros_like(carried_t.rinv),
                             pos=torch.arange(n, dtype=torch.int32, device=dev).expand(B, n),
-                            ranks=torch.zeros_like(c.ranks))
-        fields = {f.name: _where_rows(resolved, getattr(s, f.name), getattr(st_x, f.name))
-                  for f in dataclasses.fields(s)}
-        return LexLSIState(**fields), Carried(*(_where_rows(resolved, a_t, a_x)
-                                                for a_t, a_x in zip(carried_t, carried_x)))
+                            ranks=torch.zeros_like(carried_t.ranks))
+        return result(*_map_rows(lambda a, b: _where_rows(resolved, a, b),
+                                 (s, carried_t), (st_x, carried_x)))
+    return result(*_handover(A, s, carried_t, struct=struct, params=params,
+                             handover_slab=handover_slab))
 
-    # handover: unresolved instances continue in kernel B2 from their
-    # current state with their own iteration counters; the kernel's
-    # counters restart at zero, so phases sum
+
+def _handover(A, s: LexLSIState, carried_t: Carried, *, struct: Structure,
+              params: ParametersLexLSI, handover_slab: int):
+    """Kernel B2 after the tracker loop: the unresolved instances of ``s``
+    continue from their current state with their own iteration counters
+    (the kernel's restart at zero, so phases sum); the resolved ones are
+    parked for the launch through the factorization budget and keep ``s``
+    and ``carried_t``.  With 0 < ``handover_slab`` < B and at most that
+    many unresolved, B2 and the factor bootstrap run on a slab of S rows,
+    the unresolved first in stable order; otherwise at full width
+    (``tracker.py:1515-1571``).  Returns ``(state, carried')``."""
+    max_fact = params.max_number_of_factorizations
+    resolved = s.status != _UNKNOWN
     s_in = dataclasses.replace(
         s, n_fact=torch.where(resolved, max_fact, s.n_fact).to(torch.int32))
-    st_k, factors_k = _fused_tail(A, s_in, s.it, struct=struct, params=params,
-                                  return_factors=True)
-    car_k = bootstrap_carried(factors_k)
-    fields = {f.name: _where_rows(resolved, getattr(s, f.name), getattr(st_k, f.name))
-              for f in dataclasses.fields(s)}
-    fields["n_act"] = s.n_act + torch.where(resolved, 0, st_k.n_act)
-    fields["n_deact"] = s.n_deact + torch.where(resolved, 0, st_k.n_deact)
-    carried_new = Carried(*(_where_rows(resolved, a_t, a_k)
-                            for a_t, a_k in zip(carried_t, car_k)))
-    return LexLSIState(**fields), carried_new
+    if 0 < handover_slab < A.shape[0] and int((~resolved).sum()) <= handover_slab:
+        rows = torch.argsort(resolved, stable=True)[:handover_slab]
+        st_k, factors_k = _fused_tail(A[rows], *_map_rows(lambda a: a[rows], (s_in, s.it)),
+                                      struct=struct, params=params, return_factors=True)
+        st_k, car_k = _map_rows(lambda a, b: a.index_copy(0, rows, b), (s, carried_t),
+                                (st_k, bootstrap_carried(factors_k)))
+    else:
+        st_k, factors_k = _fused_tail(A, s_in, s.it, struct=struct, params=params,
+                                      return_factors=True)
+        car_k = bootstrap_carried(factors_k)
+    state, carried_new = _map_rows(lambda a, b: _where_rows(resolved, a, b),
+                                   (s, carried_t), (st_k, car_k))
+    return dataclasses.replace(state, n_act=s.n_act + torch.where(resolved, 0, st_k.n_act),
+                               n_deact=s.n_deact + torch.where(resolved, 0, st_k.n_deact)), \
+        carried_new
 
 
 def solve_core_tracked(
@@ -836,6 +954,7 @@ def solve_core_tracked(
     struct: Structure, params: ParametersLexLSI,
     ns_iters: int = 2, cert_tol: Optional[float] = None, ext_steps: int = 1,
     loop_cap: int = 0, trip1_noext: bool = False, stats: Optional[list] = None, reg=None,
+    shrink: tuple = (), handover_slab: int = 0, debug_fall: bool = False,
 ):
     """Batched warm solve with the active-set loop on the carried
     factorization (``tracker.py:970-1035``).
@@ -852,7 +971,10 @@ def solve_core_tracked(
     plus TIKHONOV and TIKHONOV_CG with the per-level factors ``reg`` (p,):
     the damped solve runs inside every trip, and instances that fall
     continue in the exact tier, since kernel B2 has no regularization.
-    Returns ``(state, carried')``."""
+    ``shrink`` (slab sizes of the pyramid), ``handover_slab`` (B2 on a
+    slab) and ``debug_fall`` are :func:`_tracked_tail`'s; results do not
+    depend on the slab sizes.  Returns ``(state, carried')``, and with
+    ``debug_fall`` also ``(fall, fall_trip, fall_why)``."""
     _check_tracked_config(params, reg, "solve_core_tracked")
     full_fp32()
     if cert_tol is None:
@@ -862,7 +984,8 @@ def solve_core_tracked(
                         True, False)
     return _tracked_tail(A, s0, carried, struct=struct, params=params, ns_iters=ns_iters,
                          cert_tol=cert_tol, ext_steps=ext_steps, loop_cap=loop_cap,
-                         trip1_noext=trip1_noext, stats=stats, reg=_reg_factors(reg, params, A))
+                         trip1_noext=trip1_noext, stats=stats, reg=_reg_factors(reg, params, A),
+                         shrink=shrink, handover_slab=handover_slab, debug_fall=debug_fall)
 
 
 def solve_core_cold_tracked(
@@ -870,7 +993,7 @@ def solve_core_cold_tracked(
     struct: Structure, params: ParametersLexLSI,
     x_guess_specified: bool = False, v0_specified: bool = False,
     ns_iters: int = 2, cert_tol: Optional[float] = None, ext_steps: int = 1,
-    stats: Optional[list] = None, reg=None,
+    stats: Optional[list] = None, reg=None, debug_fall: bool = False,
 ):
     """Cold-start batched solve through the tracker loop
     (``tracker.py:1614-1731``).
@@ -883,7 +1006,9 @@ def solve_core_cold_tracked(
     come from its factorization (:func:`carried_from_lexqr`); phase 1
     factorizes without the factors there, as the JAX package's does.  The
     tracker loop then continues every remaining iteration, with
-    per-instance fallback.  Returns ``(state, carried')``."""
+    per-instance fallback.  Returns ``(state, carried')``, and with
+    ``debug_fall`` also ``(fall, fall_trip, fall_why)``
+    (:func:`_tracked_tail`)."""
     from .ops.fused import fused_active_set
 
     _check_tracked_config(params, reg, "solve_core_cold_tracked")
@@ -932,4 +1057,5 @@ def solve_core_cold_tracked(
     carried0 = Carried(rinv=carried0.rinv, pos=pos0, ranks=ranks0)
     return _tracked_tail(A, s1, carried0, struct=struct, params=params, ns_iters=ns_iters,
                          cert_tol=cert_tol, ext_steps=ext_steps,
-                         chg0=(chg_hot0, chg_sign0), stats=stats, reg=reg)
+                         chg0=(chg_hot0, chg_sign0), stats=stats, reg=reg,
+                         debug_fall=debug_fall)
