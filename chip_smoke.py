@@ -103,7 +103,20 @@ Phases:
      timed, with trips, busy share and peak memory; (d) kernel B2 launched
      at slab width there against its plain version, and the instances
      outside the slab bit-identical to the tracker's state.  ``python3 chip_smoke.py
-     slabs`` runs this phase alone.
+     slabs`` runs this phase alone;
+ 16. config 2 of ``bench_extra.py`` (two-sided inequalities, n=88, dims
+     (44, 44), a budget of 150; the problem of
+     ``bench_extra_torch.config2_problem``), B=1024 float32, cold: the exact
+     tier (B1 every pass), the fused tier (B2, B1 in phase 1) and the
+     tracker, each driven with its launches counted, every status and NaN x
+     counted, float32's exact tier against float64's and fused and tracked
+     against float32's exact tier (x to 1.5e-2 relative, and within a tenth
+     of the neighbouring instances' relative distance), cold solves/s, B2's own
+     device time, launches, busy share, peak memory and B2's bound; B1 and
+     B2 on the last 128
+     instances against their plain versions; float64 (B=256) fused against
+     the exact tier, decisions identical.  ``python3 chip_smoke.py config2``
+     runs this phase alone.
 
 Prints one JSON line with the per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -126,7 +139,6 @@ import torch
 N_VAR, DIMS, B, T_MAX = 100, (30, 30, 30, 30), 384, 14
 TS = (2, 14)
 REPS = 11  # timing rounds of the main path, as bench.py's repetitions
-TRACKED = dict(loop_cap=1, ns_iters=2, trip1_noext=True)  # bench.py:84-131
 # the test_01 shape: 60 simple bounds, the largest level wider than n; the
 # kernel is held against its plain version on SB_B_PLAIN instances (in
 # float32 a tenth of them may end in another working set, and with 16
@@ -140,11 +152,11 @@ GOLDEN_F32 = dict(max_number_of_factorizations=250, tol_linear_dependence=1e-7,
 # (d): the bench shape at B=64 with a budget of 40 factorizations (its cold
 # solve takes some 200 passes, minutes for the CPU side of the comparison)
 GOLDEN_TRACE_B, GOLDEN_TRACE_BUDGET = 64, 40
-# bench_extra.py's config 1 (bench_extra.py:77-114): the equality l-QR at
-# test_01's general levels, B perturbed copies, timed over EQ_REPS calls; its
-# least-norm check takes the first three levels (50 free variables) on a few
-# instances
-EQ_N, EQ_DIMS, EQ_TOL, EQ_REPS = 88, (33, 3, 2, 97), 1e-7, 20
+# bench_extra.py's config 1 (bench_extra.py:77-114; its shape is
+# bench_extra_torch's EQ_N, EQ_DIMS): the equality l-QR at test_01's general
+# levels, B perturbed copies, timed over EQ_REPS calls; its least-norm check
+# takes the first three levels (50 free variables) on a few instances
+EQ_TOL, EQ_REPS = 1e-7, 20
 EQ_LN_LEVELS, EQ_LN_B = 3, 8
 
 
@@ -231,23 +243,16 @@ def _active_set_flops(res, dims, n, m):
 
 
 def _bench_problem(dtype, dev, Bn=B):
-    """The workload of ``bench.py:133-166``: one random 4x30 hierarchy over
-    100 variables, ``Bn`` perturbed copies (the first B of any larger batch
-    are the B of a smaller one), and a drift stream shared by all."""
-    from lexls_tpu_torch.oracle import random_inequality_hierarchy
-    from lexls_tpu_torch.types import ParametersLexLSI
+    """The workload of ``bench.py:133-166``, as the bench draws it
+    (``bench_torch.bench_problem`` and ``bench_params``): one random 4x30
+    hierarchy over 100 variables, ``Bn`` perturbed copies (the first B of
+    any larger batch are the B of a smaller one), and a drift stream of
+    T_MAX steps shared by all.  Returns (prob, params, base, drifts, lb,
+    ub), the bounds of one instance."""
+    from bench_torch import bench_params, bench_problem
 
-    params = ParametersLexLSI(max_number_of_factorizations=250, tol_linear_dependence=1e-7,
-                              tol_wrong_sign_lambda=1e-4, tol_correct_sign_lambda=1e-6,
-                              tol_feasibility=1e-5)
-    rng = np.random.default_rng(0)
-    prob = random_inequality_hierarchy(rng, N_VAR, list(DIMS), equality_fraction=0.1,
-                                       tight_fraction=0.3)
-    drifts = 1e-3 * np.cumsum(
-        np.random.default_rng(1).standard_normal((T_MAX,) + prob.A.shape), axis=0)
-    base = prob.A + 1e-3 * rng.standard_normal((Bn,) + prob.A.shape)
-    t = lambda a: torch.as_tensor(a, device=dev).to(dtype)  # noqa: E731
-    return prob, params, t(base), t(drifts), t(prob.lb), t(prob.ub)
+    prob, base, drifts, lbs, ubs = bench_problem(Bn, T_MAX, dtype, dev)
+    return prob, bench_params(), base, drifts, lbs[0], ubs[0]
 
 
 def _phase1(A, lbs, ubs, struct, params, x=None, ct=None):
@@ -399,7 +404,7 @@ def _rows(r, mask):
     return type(r)(*(t[mask] for t in r))
 
 
-def _print_bound(label, args, kw, res, struct):
+def _print_bound(label, args, kw, res, struct, n=N_VAR):
     """Print and return B2's bound for one call: every input and output
     once over the memory rate, or the operations that the call's
     iterations needed (at the exported ranks, those of each instance's last
@@ -412,8 +417,8 @@ def _print_bound(label, args, kw, res, struct):
         outs += res[19:27]
     if kw["cycling"]:
         outs += [res.lb, res.ub, *res[27:31]]
-    nbytes = _nbytes(*args, kw["prio"], kw["elig"], *outs)
-    flops = _active_set_flops(res, struct.lexlse_dims, N_VAR, struct.m)
+    nbytes = _nbytes(*(a for a in args if torch.is_tensor(a)), kw["prio"], kw["elig"], *outs)
+    flops = _active_set_flops(res, struct.lexlse_dims, n, struct.m)
     bound_ms, bound_by = _bound(nbytes, flops)
     steps = int(res.ranks.sum(1).max())
     print(f"{label} bound {bound_ms:.5f} ms by {bound_by} ({flops / 1e6:.2f} MFLOP for "
@@ -502,6 +507,7 @@ def print_layouts():
         name = "f64" if dtype == torch.float64 else "f32"
         shapes = (("bench", sum(DIMS), N_VAR, len(DIMS), 0, max(DIMS)),
                   ("test_01", sum(SB_DIMS), SB_N, len(sb_general), SB_DIMS[0], max(sb_general)),
+                  ("config 2", 88, 88, 2, 0, 44),
                   ("n=160, m=200", 200, 160, 4, 0, 50))
         for what, m, n, p, d0, dmax in shapes:
             lay = fused_layout(m, n, p, d0, dmax, dtype)
@@ -510,7 +516,8 @@ def print_layouts():
                   f"{lay.nbytes_all_shared} bytes), {lay.nbytes} bytes of shared memory a block, "
                   f"row stride {lay.ld}; blocks per SM {lay.blocks_per_sm} by the bytes, "
                   f"{fused_occupancy(lay, dtype)} as the card reports")
-        for what, dim, n in (("bench", DIMS[0], N_VAR), ("test_01", max(sb_general), SB_N)):
+        for what, dim, n in (("bench", DIMS[0], N_VAR), ("test_01", max(sb_general), SB_N),
+                             ("config 2", 44, 88)):
             lay = panel_layout(dim, n, dtype)
             print(f"[layout B1 {name} {what}] dim={dim} n={n}: block in "
                   f"{'shared' if lay.in_shared else 'device'} memory, {lay.nbytes} bytes of "
@@ -731,6 +738,7 @@ def check_tracked_simple_bounds(dev):
     float64 (float32 cycles at this shape, see ``check_simple_bounds``):
     B sequences of SB_T steps, a cold solve and warm steps whose general
     rows drift, against the fused path on the same sequences."""
+    from bench_torch import TRACKED
     from lexls_tpu_torch import solve_sequence_batched_fused
     from lexls_tpu_torch.types import ParametersLexLSI
 
@@ -1079,6 +1087,7 @@ def profile_trip(A_seq, lb_seq, ub_seq, reg, struct, params):
     ``solve_core_tracked`` runs it with the bench's knobs: its time (CUDA
     events) and its kernel launches (torch.profiler), beside the same two
     numbers for the phase 1 that precedes it."""
+    from bench_torch import TRACKED
     from lexls_tpu_torch import bootstrap_carried, solve_core_fused
     from lexls_tpu_torch import tracker as trk
     from lexls_tpu_torch.sequence import _device_initial_activation
@@ -1123,6 +1132,7 @@ def _level_norms(v, dims):
 def run_main_paths(dev, report):
     """The fused path and the tracked path at the bench shape, each with
     its launch counts, then both timed in interleaved rounds."""
+    from bench_torch import TRACKED
     from lexls_tpu_torch import Structure, solve_sequence_batched_fused
     from lexls_tpu_torch.ops import fused_active_set, panel_factorize
 
@@ -1345,36 +1355,26 @@ def run_new_paths(dev, report):
     report["panel_factorize"]["path2_ms_per_launch"] = b1_ms / max(b1_n, 1)
 
 
-# bench_extra.py config 3 (bench_extra.py:188-218): deep rank-deficient Tikhonov
-REG_N, REG_DIMS, REG_RANKS, REG_FACTOR = 24, (6, 5, 5, 4, 4, 4), (4, 3, 3, 2, 2, 2), 0.05
+# bench_extra.py config 3 (bench_extra.py:188-218; its shape is
+# bench_extra_torch's REG_N, REG_DIMS): deep rank-deficient Tikhonov
 REG_B, REG_B_PLAIN, REG_B64, REG_T = 1024, 64, 128, 3
 
 
 def _config3_problem(Bn, dtype, dev, rt=None):
-    """Config 3 of ``bench_extra.py:188-218``: one random hierarchy of six
+    """Config 3 of ``bench_extra.py:188-218``, as the bench draws it
+    (``bench_extra_torch.config3_problem``): one random hierarchy of six
     rank-deficient levels over 24 variables, factors 0.05, the f32
-    tolerances, and Bn copies of A perturbed by 1e-3.  Returns (prob,
-    params, A (Bn, m, n), lb, ub, reg) with the bounds broadcast."""
+    tolerances, and Bn copies of A perturbed by 1e-3; ``rt`` replaces the
+    regularization type.  Returns (prob, params, A (Bn, m, n), lb, ub, reg)
+    with the bounds broadcast."""
     import dataclasses
 
-    from lexls_tpu_torch.oracle import random_inequality_hierarchy
-    from lexls_tpu_torch.types import ParametersLexLSI, RegularizationType
+    from bench_extra_torch import config3_problem
 
-    rng = np.random.default_rng(0)
-    prob = random_inequality_hierarchy(rng, REG_N, list(REG_DIMS), ranks=list(REG_RANKS),
-                                       equality_fraction=0.1)
-    prob.regularization = np.full(len(REG_DIMS), REG_FACTOR)
-    params = ParametersLexLSI(regularization_type=RegularizationType.TIKHONOV,
-                              max_number_of_factorizations=64, tol_linear_dependence=1e-7,
-                              tol_wrong_sign_lambda=1e-4, tol_correct_sign_lambda=1e-6,
-                              tol_feasibility=1e-5)
+    prob, params, inp = config3_problem(Bn, dtype, dev)
     if rt is not None:
         params = dataclasses.replace(params, regularization_type=rt)
-    base = np.stack([prob.A + 1e-3 * rng.standard_normal(prob.A.shape) for _ in range(Bn)])
-    t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(dtype)  # noqa: E731
-    m = prob.n_ctr
-    return (prob, params, t(base).contiguous(), t(prob.lb).expand(Bn, m).contiguous(),
-            t(prob.ub).expand(Bn, m).contiguous(), t(prob.regularization))
+    return prob, params, inp["A"], inp["lb"], inp["ub"], inp["reg"]
 
 
 def check_regularized_panel(dev):
@@ -1477,6 +1477,7 @@ def run_regularized(dev, report):
     pass, and the exact tier timed once more after the profiles."""
     import dataclasses
 
+    from bench_extra_torch import REG_DIMS, REG_N
     from lexls_tpu_torch import (Structure, batched_initial_arrays, solve_core_batched,
                                  solve_core_cold_tracked, solve_sequence_batched_native)
     from lexls_tpu_torch.ops import fused_active_set, panel_factorize
@@ -1889,17 +1890,13 @@ def run_golden(dev, report):
 
 
 def _config1_problem(dtype, dev):
-    """``bench_extra.py:84-95``: one random equality hierarchy (seed 0,
-    n=88, dims (33, 3, 2, 97), every level at full rank), then B copies of
-    A and of b, each perturbed by 1e-3."""
-    from lexls_tpu_torch.oracle import random_equality_hierarchy
+    """``bench_extra.py:84-95``, as the bench draws it
+    (``bench_extra_torch.config1_problem``): one random equality hierarchy
+    (seed 0, n=88, dims (33, 3, 2, 97), every level at full rank), then B
+    copies of A and of b, each perturbed by 1e-3."""
+    from bench_extra_torch import config1_problem
 
-    rng = np.random.default_rng(0)
-    A, b, _, _, _ = random_equality_hierarchy(rng, EQ_N, list(EQ_DIMS))
-    As = np.stack([A + 1e-3 * rng.standard_normal(A.shape) for _ in range(B)])
-    bs = np.stack([b + 1e-3 * rng.standard_normal(b.shape) for _ in range(B)])
-    return (torch.as_tensor(As, device=dev).to(dtype).contiguous(),
-            torch.as_tensor(bs, device=dev).to(dtype).contiguous())
+    return config1_problem(B, dtype, dev)[:2]
 
 
 def run_equality(dev, report):
@@ -1921,6 +1918,7 @@ def run_equality(dev, report):
     through ``LexLSE`` in float64: option 0's per-level residual norms to
     1e-8 of the C++ gold's, options 1, 2 and the general norm with M = I
     leave them there, ranks as on the CPU."""
+    from bench_extra_torch import EQ_DIMS, EQ_N
     from lexls_tpu_torch import (EqualityHierarchy, LexLSE, ParametersLexLSE,
                                  RegularizationType, solve_equality_batched)
     from lexls_tpu_torch.io import dat as io_dat
@@ -2228,12 +2226,12 @@ def _b2_against_plain(label, got, want, misses):
         misses.append(f"{label}: R err {kmax:.3e} over a tenth of the neighbours' {nmed:.3e}")
 
 
-def _tail_checks(dev, cold, reg, struct, params, short, misses):
-    """B1 and B2 on the last SH_TAIL of SH_B instances against their plain
+def _tail_checks(dev, cold, reg, struct, params, short, misses, label="sharded"):
+    """B1 and B2 on the last SH_TAIL of the cold instances against their plain
     versions on the same rows of the same inputs, by check_panel's and
     check_fused's float32 rules: B1's launches of the last pass of the
     exact tier's call cut at SH_BUDGET factorizations, as that call made
-    them at B=SH_B; B2 launched at B=SH_B on the cold phase-1 state, as
+    them at the full B; B2 launched at the full B on the cold phase-1 state, as
     ``solve_core_fused`` launches it, paused after SH_CAP iterations."""
     from lexls_tpu_torch import solve_batched
     from lexls_tpu_torch.lexlsi import active_set_kwargs
@@ -2241,15 +2239,16 @@ def _tail_checks(dev, cold, reg, struct, params, short, misses):
     from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref, panel_factorize_ref
     from lexls_tpu_torch.ops import panel_lqr as panel_mod
 
-    tail = slice(SH_B - SH_TAIL, SH_B)
+    Bn = cold[0].shape[0]
+    tail = slice(Bn - SH_TAIL, Bn)
     p = len(struct.lexlse_dims)
     launches = _launches_of(panel_mod, "panel_factorize", lambda: solve_batched(
         *cold, reg, struct=struct, params=short), p, tail)
     for k, (args, got, kw, _) in enumerate(launches):
         want = panel_factorize_ref(*args, **kw)
         ndiff, err = _panel_diff(got, want)
-        print(f"[sharded B1 tail] launch {k + 1} of {p} of the last pass (fr={kw['fr']}, "
-              f"B={SH_B}): instances {SH_B - SH_TAIL}..{SH_B - 1} against the plain version: "
+        print(f"[{label} B1 tail] launch {k + 1} of {p} of the last pass (fr={kw['fr']}, "
+              f"B={Bn}): instances {Bn - SH_TAIL}..{Bn - 1} against the plain version: "
               f"pivot orders differing {ndiff}/{SH_TAIL}; max |err| where equal {err:.3e}")
         if ndiff > SH_TAIL // 10 or err > 1e-3:
             misses.append(f"B1 tail, launch {k + 1}: {ndiff} pivot orders differ, |err| {err:.3e}")
@@ -2262,8 +2261,8 @@ def _tail_checks(dev, cold, reg, struct, params, short, misses):
     got = fused_active_set(*args, iter_cap=SH_CAP, **kw)
     want = fused_active_set_ref(*(a[tail] for a in args), iter_cap=SH_CAP, **kw)
     torch.cuda.synchronize()
-    _b2_against_plain(f"[sharded B2 tail] B={SH_B} iter_cap={SH_CAP}, instances "
-                      f"{SH_B - SH_TAIL}..{SH_B - 1}",
+    _b2_against_plain(f"[{label} B2 tail] B={Bn} iter_cap={SH_CAP}, instances "
+                      f"{Bn - SH_TAIL}..{Bn - 1}",
                       fused_mod.ActiveSetResult(*(f[tail] for f in got)), want, misses)
 
 
@@ -2324,6 +2323,7 @@ def sharded_checks(dev, report, mesh):
 
     import torch.distributed as dist
 
+    from bench_torch import TRACKED
     from lexls_tpu_torch import (Structure, make_sharded_sequence_solver,
                                  make_sharded_solver_2d, solve_batched, solve_core_cold_tracked,
                                  solve_core_fused)
@@ -2843,6 +2843,207 @@ def run_slabs(dev, report):
     print(f"[slabs] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# config 2 (bench_extra.py:117-185), uncut: two-sided inequalities, n=88, dims
+# (44, 44), a budget of 150 factorizations, cold, C2_B instances in float32
+# (bench_extra.py's B on the card) and C2_B64 in float64; each mode timed over
+# C2_REPS calls; the exact tier profiled on a call cut at SH_BUDGET
+# factorizations (a whole call is tens of thousands of launches); B1 and B2
+# held against their plain versions on the last SH_TAIL instances; x held to
+# C2_TOL_X relative, float32's exact tier against float64's and the float32
+# modes against float32's exact tier (read on an H100: 6.045e-03 and 3.532e-03)
+C2_B, C2_B64, C2_REPS, C2_TOL_X = 1024, 256, 3, 1.5e-2
+C2_MODES = ("exact", "fused", "tracked")
+
+
+def _config2_solvers(inp, struct, params):
+    """Config 2's cold solve in each mode, from ``bench_extra_torch``'s
+    inputs: ``exact`` (``solve_batched``, kernel B1 in every pass),
+    ``fused`` (``solve_core_fused``, kernel B2) and ``tracked``
+    (``solve_core_cold_tracked``); each takes an optional stats list and
+    parameters."""
+    from lexls_tpu_torch import solve_batched, solve_core_cold_tracked, solve_core_fused
+
+    A = inp["A"]
+    Bn, m, n = A.shape
+    z = lambda *shape: torch.zeros(*shape, dtype=A.dtype, device=A.device)  # noqa: E731
+    cold = [A, inp["lb"], inp["ub"], inp["ctr_type0"], inp["stamp0"], inp["next_stamp0"],
+            z(Bn, n), z(Bn, m)]
+    reg = inp["reg"]
+    return cold, {
+        "exact": lambda stats=None, params=params: solve_batched(*cold, reg, struct=struct,
+                                                                 params=params),
+        "fused": lambda stats=None, params=params: solve_core_fused(
+            *cold, reg, struct=struct, params=params, x_guess_specified=False,
+            v0_specified=False),
+        "tracked": lambda stats=None, params=params: solve_core_cold_tracked(
+            *cold, struct=struct, params=params, stats=stats)[0],
+    }
+
+
+def _rel_x_err(got, want):
+    """max |x_got - x_want| / (1 + |x_want|) over the instances whose final
+    working sets agree (x is unique there)."""
+    same = (got.ctr_type == want.ctr_type).all(1)
+    err = ((got.x.double() - want.x.double()).abs() / (1 + want.x.double().abs())).amax(1)
+    return float(err[same].max())
+
+
+def _states_agree_by_x(label, got, want, tol_x):
+    """:func:`_states_agree` for a hierarchy whose every level is feasible
+    (config 2: float64's per-level |v| is about 1e-11 on every instance, so
+    the float32 |v| is roundoff and cannot tell instances apart): statuses
+    equal, at most a tenth of the instances in another final working set,
+    and where the working sets agree x within ``tol_x`` relative (|dx| /
+    (1 + |x|)) and within a tenth of the median relative distance between
+    the x of neighbouring instances of ``want`` (the neighbour bound on x
+    instead of |v|, so that a block that solved its neighbour's instance
+    misses).  Returns a miss, or None."""
+    same = (got.ctr_type == want.ctr_type).all(1)
+    ndiff, status_ok = int((~same).sum()), bool(torch.equal(got.status, want.status))
+    xerr = _rel_x_err(got, want)
+    w = want.x.double()
+    nbr = float(((w[1:] - w[:-1]).abs() / (1 + w[:-1].abs())).amax(1).median())
+    print(f"{label} statuses equal {status_ok}; final working sets differing {ndiff}/{len(same)}; "
+          f"max |x err| / (1 + |x|) {xerr:.3e} where equal (bound {tol_x:.3e}; neighbouring "
+          f"instances: median {nbr:.3e})")
+    if status_ok and ndiff <= len(same) // 10 and xerr <= min(tol_x, nbr / 10):
+        return None
+    return (f"{label} statuses equal {status_ok}, {ndiff} working sets differ, |x err| / (1 + |x|) "
+            f"{xerr:.3e} (bound {tol_x:.3e}, a tenth of the neighbours' {nbr / 10:.3e})")
+
+
+def run_config2(dev, report):
+    """Config 2 on the card, the problem of
+    ``bench_extra_torch.config2_problem`` (so that this phase and the bench
+    measure one problem): C2_B cold solves in float32 through the exact
+    tier, the fused tier (B2, with B1 p times in phase 1) and the tracker
+    (B2 for one capped iteration, trips, then B2 on what the trips left),
+    each driven once with the launch counts zeroed just before and read
+    just after and the peak device memory of that call; every status and
+    every NaN x counted; the float32 exact tier held against the float64
+    exact tier on the same instances, and fused and tracked against the
+    float32 exact tier (:func:`_states_agree_by_x`, its neighbour bound
+    included, x to the fixed C2_TOL_X relative); cold solves/s
+    (median of C2_REPS calls by CUDA events); B2's own device time in the
+    fused call (events around its launch); launches and the device's busy
+    share (torch.profiler; the exact tier's call cut at SH_BUDGET
+    factorizations); B2's bound.  Then B1 and B2 on the last SH_TAIL
+    instances against their plain versions (:func:`_tail_checks`), and in
+    float64 on the first C2_B64 the fused tier against the exact tier: statuses,
+    iterations, working sets and counters identical, x and v to 1e-8."""
+    import dataclasses
+
+    from bench_extra_torch import config2_problem
+    from lexls_tpu_torch import Structure
+    from lexls_tpu_torch.ops import _build
+    from lexls_tpu_torch.ops import fused as fused_mod
+
+    t_phase = time.perf_counter()
+    prob, params, inp = config2_problem(C2_B, torch.float32, dev)
+    struct = Structure.of(prob)
+    p, n = len(struct.lexlse_dims), prob.n_var
+    cold, fns = _config2_solvers(inp, struct, params)
+    short = dataclasses.replace(params, max_number_of_factorizations=SH_BUDGET)
+    misses, states, calls = [], {}, {}
+    for mode in C2_MODES:
+        fn, stats = fns[mode], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mib = torch.cuda.memory_allocated() / 2**20
+        t0 = time.perf_counter()
+        st, launches = _counted(lambda: fn(stats))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        for k in report:
+            report[k].setdefault("launches_by_path", {})[f"config2_{mode}"] = launches[k]
+        counts = torch.bincount(st.status + 1, minlength=4).tolist()
+        nan_x = int((~torch.isfinite(st.x)).any(1).sum())
+        times = _cuda_times(fn, C2_REPS, warmup=False)
+        ms = calls[mode] = statistics.median(times)
+        rows, wall_ms = _profile(lambda: fn(params=short) if mode == "exact" else fn())
+        dev_ms = sum(r[0] for r in rows) / 1e3
+        b1_ms = sum(r[0] for r in rows if "panel_factorize_kernel" in r[2]) / 1e3
+        b2_ms = sum(r[0] for r in rows if "fused_kernel" in r[2]) / 1e3
+        what = f"a call cut at {SH_BUDGET} factorizations" if mode == "exact" else "a whole call"
+        trips = f"; tracker trips {stats[0][0]}, instances handed to B2 {stats[0][1]}/{C2_B}" \
+            if stats else ""
+        print(f"[config2 {mode}] B={C2_B} n={n} dims={prob.dims} float32, cold: "
+              f"{C2_B / ms * 1e3:.1f} cold solves/s ({ms:.3f} ms a call, median of {C2_REPS} by "
+              f"CUDA events; all {[round(t, 3) for t in times]}); first call {wall:.3f} s host "
+              f"wall; status counts {counts} (-1,0,1,2); NaN x {nan_x}; iterations mean "
+              f"{float(st.it.double().mean()):.2f} max {int(st.it.max())}; launches {launches} a "
+              f"call{trips}; peak device memory {peak:.1f} MiB ({base_mib:.1f} held before); "
+              f"device busy {100 * dev_ms / wall_ms:.1f}% of the profiled wall ({what}: "
+              f"{dev_ms:.3f} ms of device time in {sum(r[1] for r in rows)} launches, B1 "
+              f"{b1_ms:.3f} ms, B2 {b2_ms:.3f} ms; {wall_ms:.3f} ms profiled)")
+        want = {"exact": (launches["panel_factorize"] > p, launches["fused_active_set"] == 0),
+                "fused": (launches["panel_factorize"] == p, launches["fused_active_set"] == 1),
+                "tracked": (launches["panel_factorize"] == p,
+                            launches["fused_active_set"] >= 1)}[mode]
+        if not all(want) or tuple(st.x.shape) != (C2_B, n) or nan_x:
+            misses.append(f"{mode}: launches {launches}, x of shape {tuple(st.x.shape)}, NaN x "
+                          f"{nan_x}")
+        states[mode] = st
+    # float64's exact tier on the same instances: float32's own error
+    _, params64, inp64 = config2_problem(C2_B, torch.float64, dev)
+    _, fns64 = _config2_solvers(inp64, struct, params64)
+    exact64 = fns64["exact"]()
+    print(f"[config2] float64's exact tier: per-level |v| at most "
+          f"{float(_level_norms(exact64.v, prob.dims).max()):.3e} (every level is feasible)")
+    # the reference itself at the fixed limit, then the modes against it
+    for label, got, want in (("exact", states["exact"], exact64),
+                             ("fused", states["fused"], states["exact"]),
+                             ("tracked", states["tracked"], states["exact"])):
+        against = "float64's exact tier" if want is exact64 else "float32's exact tier"
+        miss = _states_agree_by_x(f"[config2 {label}] B={C2_B} float32 against {against}:",
+                                  got, want, C2_TOL_X)
+        if miss:
+            misses.append(miss)
+    print("[config2] cold solves/s: " + "; ".join(f"{k} {C2_B / v * 1e3:.1f}"
+                                                  for k, v in calls.items()) + f"; {_card()}")
+
+    # B2's own device time and its bound in the fused call
+    _build.LAUNCH_EVENTS = events = []
+    try:
+        for _ in range(C2_REPS):
+            torch.cuda.synchronize()  # an idle card: the events bracket the kernel alone
+            fns["fused"]()
+        torch.cuda.synchronize()
+    finally:
+        _build.LAUNCH_EVENTS = None
+    own = [s.elapsed_time(e) for name, s, e in events if "fused" in name]
+    print(f"[config2 fused] B2's own device time {statistics.median(own):.4f} ms a call (median of "
+          f"{len(own)} launches, events around the launch; all {[round(t, 4) for t in own]}); "
+          f"B1's {sum(s.elapsed_time(e) for name, s, e in events if 'panel' in name) / C2_REPS:.4f}"
+          f" ms a call in phase 1")
+    (args, outs, kw, _), = _launches_of(fused_mod, "fused_active_set", fns["fused"], 1,
+                                        slice(None))
+    res = fused_mod.ActiveSetResult(*outs)
+    bound_ms, bound_by = _print_bound("[config2 fused] B2", args, kw, res, struct, n=n)
+    report["fused_active_set"]["config2"] = dict(ms=calls["fused"], own_ms=statistics.median(own),
+                                                 bound_ms=bound_ms, bound_by=bound_by)
+
+    # the kernels against their plain versions on the last instances
+    _tail_checks(dev, cold, inp["reg"], struct, params, short, misses, label="config2")
+
+    # float64: the fused tier against the exact tier on the first C2_B64 instances
+    _, fns64 = _config2_solvers({k: v if k == "reg" else v[:C2_B64] for k, v in inp64.items()},
+                                struct, params64)
+    exact, fused = fns64["exact"](), fns64["fused"]()
+    ints = ("status", "it", "ctr_type", "stamp", "next_stamp", "n_act", "n_deact", "n_fact")
+    bad = [f for f in ints if not torch.equal(getattr(exact, f), getattr(fused, f))]
+    errs = {f: float((getattr(exact, f) - getattr(fused, f)).abs().max()) for f in ("x", "v")}
+    print(f"[config2 f64] B={C2_B64}: fused against the exact tier: fields differing "
+          f"{bad or 'none'}; max |err| x {errs['x']:.3e}, v {errs['v']:.3e}; status counts "
+          f"{torch.bincount(exact.status + 1, minlength=4).tolist()} (-1,0,1,2); iterations mean "
+          f"{float(exact.it.double().mean()):.2f} max {int(exact.it.max())}")
+    if bad or max(errs.values()) > 1e-8:
+        misses.append(f"f64: fields differing {bad}, |err| {errs}")
+    print(f"[config2] phase wall {time.perf_counter() - t_phase:.1f} s")
+    if misses:
+        raise SystemExit("config2 phase failed:\n  " + "\n  ".join(misses))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU",
@@ -2898,6 +3099,7 @@ def main():
         "equality": lambda: run_equality(dev, report),
         "sharded": lambda: run_sharded(dev, report),
         "slabs": lambda: run_slabs(dev, report),
+        "config2": lambda: run_config2(dev, report),
     }
     # with phase names as arguments, only those run and no result is printed
     # (for work on one kernel); with none, as the check runs it, all do
