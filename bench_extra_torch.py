@@ -28,7 +28,11 @@ an answer still shows, each record also counts, over the last timed call,
 the instances whose x is not finite (``nonfinite_x``) and, for configs 2
 and 3, those that end in another status than ``PROBLEM_SOLVED``
 (``unsolved``; config 3's budget of 64 factorizations ends most of its
-instances at status 2, which ``bench_extra.py`` sums).
+instances at status 2, which ``bench_extra.py`` sums), and names the first
+8 of those by index with status, iterations and factorizations
+(``unsolved_at``).  The chain of solves is :func:`cold_chain`, which
+``chip_smoke.py config2_chain`` replays on the card with the same
+arguments.
 
     python3 bench_extra_torch.py
 
@@ -183,17 +187,41 @@ def _slope(run, Ns, reps, device):
     return (med[max(Ns)] - med[min(Ns)]) / (max(Ns) - min(Ns))
 
 
-def _record(metric, B, s, config, dtype, x, status=None):
+UNSOLVED_AT = 8  # instances named in a record's ``unsolved_at``
+
+
+def _record(metric, B, s, config, dtype, x, state=None):
     """The record of one config: the rate, and over the last call's ``x``
-    (and ``status``) the instances with a non-finite x (and not solved)."""
+    (and solver ``state``) the instances with a non-finite x (and those not
+    solved: their count, and the first UNSOLVED_AT of them by index, with
+    status, iterations and factorizations)."""
     rate = B / max(s, 1e-9)
     rec = {"metric": metric, "value": round(rate, 2), "unit": "solves/s", "config": config,
            "dtype": str(dtype).replace("torch.", ""),
            "nonfinite_x": int((~torch.isfinite(x)).any(1).sum())}
-    if status is not None:
-        rec["unsolved"] = int((status != 0).sum())
+    if state is not None:
+        bad = torch.nonzero(state.status != 0).flatten()
+        rec["unsolved"] = int(bad.numel())
+        rec["unsolved_at"] = [
+            {"index": i, "status": int(state.status[i]), "it": int(state.it[i]),
+             "n_fact": int(state.n_fact[i])} for i in bad[:UNSOLVED_AT].tolist()]
     print(json.dumps(rec), flush=True)
     return rec
+
+
+def cold_chain(solve, A, N):
+    """``N`` back-to-back cold solves from ``A`` (B, m, n), as
+    ``bench_extra.py``'s timed run makes them: each solve's A is the one
+    before moved by ``1e-9 * nansum(x)`` of its answer, so no solve can
+    start before the previous one ends.  Returns (acc, steps): ``acc`` the
+    sum of every solve's iterations, a scalar tensor to fetch, and
+    ``steps`` the (A, state) of each solve."""
+    acc, steps = torch.zeros((), dtype=A.dtype, device=A.device), []
+    for _ in range(N):
+        st = solve(A)
+        steps.append((A, st))
+        A, acc = A + 1e-9 * st.x.nansum(), acc + st.it.sum()
+    return acc, steps
 
 
 def bench_equality(device, dtype, B):
@@ -219,41 +247,51 @@ def bench_equality(device, dtype, B):
                    f"B={B} n={EQ_N} dims={EQ_DIMS} (test_01 scale)", dtype, last["x"])
 
 
-def bench_inequality_cold(device, dtype, B, mode="tracked"):
-    """Config 2: cold solves/s, N back-to-back cold solves
-    (``bench_extra.py:147-185``): ``tracked`` through
-    ``solve_core_cold_tracked``, ``fused`` through ``solve_core_fused``."""
-    from lexls_tpu_torch import solve_core_cold_tracked, solve_core_fused, Structure
-    from lexls_tpu_torch.lexlsi import full_fp32
+def config2_solver(prob, params, inp, mode="tracked"):
+    """Config 2's cold solve ``solve(A)`` of A (B, m, n) with the other
+    inputs of :func:`config2_problem`: ``tracked`` through
+    ``solve_core_cold_tracked``, ``fused`` through ``solve_core_fused``
+    (kernel B2); ``stats``, a list, takes the tracker's counters.  Returns
+    the solver state."""
+    from lexls_tpu_torch import Structure, solve_core_cold_tracked, solve_core_fused
 
     if mode not in ("tracked", "fused"):
         raise ValueError(f"config 2 mode {mode!r}: tracked or fused")
-    full_fp32()
-    prob, params, inp = config2_problem(B, dtype, device)
     struct = Structure.of(prob)
     m, n = prob.n_ctr, prob.n_var
     fixed = (inp["lb"], inp["ub"], inp["ctr_type0"], inp["stamp0"], inp["next_stamp0"])
 
-    def solve(A):
-        x0 = torch.zeros(B, n, dtype=dtype, device=device)
-        v0 = torch.zeros(B, m, dtype=dtype, device=device)
+    def solve(A, stats=None):
+        x0 = torch.zeros(A.shape[0], n, dtype=A.dtype, device=A.device)
+        v0 = torch.zeros(A.shape[0], m, dtype=A.dtype, device=A.device)
         if mode == "tracked":
-            return solve_core_cold_tracked(A, *fixed, x0, v0, struct=struct, params=params)[0]
+            return solve_core_cold_tracked(A, *fixed, x0, v0, struct=struct, params=params,
+                                           stats=stats)[0]
         return solve_core_fused(A, *fixed, x0, v0, inp["reg"], struct=struct, params=params,
                                 x_guess_specified=False, v0_specified=False)
 
+    return solve
+
+
+def bench_inequality_cold(device, dtype, B, mode="tracked"):
+    """Config 2: cold solves/s, N back-to-back cold solves
+    (``bench_extra.py:147-185``) of :func:`cold_chain` through
+    :func:`config2_solver`."""
+    from lexls_tpu_torch.lexlsi import full_fp32
+
+    full_fp32()
+    prob, params, inp = config2_problem(B, dtype, device)
+    solve = config2_solver(prob, params, inp, mode)
     last = {}
 
     def run(N):
-        Ac, acc = inp["A"], torch.zeros((), dtype=dtype, device=device)
-        for _ in range(N):
-            st = last["st"] = solve(Ac)
-            Ac, acc = Ac + 1e-9 * st.x.nansum(), acc + st.it.sum()
+        acc, steps = cold_chain(solve, inp["A"], N)
+        last["st"] = steps[-1][1]
         return acc
 
     return _record("inequality_cold_solves_per_s", B, _slope(run, (1, 3), 3, device),
                    f"B={B} n=88 dims=(44,44) two-sided cold {mode}", dtype, last["st"].x,
-                   last["st"].status)
+                   last["st"])
 
 
 def bench_deep_regularized(device, dtype, B, mode="tracked"):
@@ -282,15 +320,13 @@ def bench_deep_regularized(device, dtype, B, mode="tracked"):
     last = {}
 
     def run(N):
-        Ac, acc = inp["A"], torch.zeros((), dtype=dtype, device=device)
-        for _ in range(N):
-            st = last["st"] = solve(Ac)
-            Ac, acc = Ac + 1e-9 * st.x.nansum(), acc + st.status.sum()
+        acc, steps = cold_chain(solve, inp["A"], N)
+        last["st"] = steps[-1][1]
         return acc
 
     return _record("deep_regularized_cold_solves_per_s", B, _slope(run, (1, 4), 3, device),
                    f"B={B} n=24 levels=6 rank-deficient tikhonov {mode}", dtype, last["st"].x,
-                   last["st"].status)
+                   last["st"])
 
 
 def run_all(device=None, dtype=None):

@@ -116,7 +116,23 @@ Phases:
      B2 on the last 128
      instances against their plain versions; float64 (B=256) fused against
      the exact tier, decisions identical.  ``python3 chip_smoke.py config2``
-     runs this phase alone.
+     runs this phase alone;
+ 17. config 2's bench chain (``bench_extra_torch.cold_chain``, each A
+     moved by the sum of the last answer, so the inputs depend on the
+     card's own float32 results) replayed three times in the tracked and
+     three times in the fused mode, N=3, B=1024: each instance that ends
+     unsolved printed and saved under ``build/config2_chain/``, and
+     the first solved again at B=1 by B2 and its plain version, in float32
+     and float64, with where their working sets part and why (each level's
+     rank there, and B1 against its plain version on level 0).  ``python3
+     chip_smoke.py config2_chain`` runs this phase alone;
+ 18. the package installed: the wheel built by pip from a copy of the
+     tree and installed into a temporary directory (``install_port``, which
+     ``tests/test_torch_packaging.py`` runs too), then, in a fresh interpreter
+     outside the checkout with a fresh ``XDG_CACHE_HOME``, the kernels
+     built from the installed sources into that cache and the fused warm
+     sequence run at B=384, T=3, held against the same call from the
+     checkout.  ``python3 chip_smoke.py installed`` runs this phase alone.
 
 Prints one JSON line with the per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -2855,28 +2871,27 @@ C2_B, C2_B64, C2_REPS, C2_TOL_X = 1024, 256, 3, 1.5e-2
 C2_MODES = ("exact", "fused", "tracked")
 
 
-def _config2_solvers(inp, struct, params):
+def _config2_solvers(prob, inp, params):
     """Config 2's cold solve in each mode, from ``bench_extra_torch``'s
-    inputs: ``exact`` (``solve_batched``, kernel B1 in every pass),
-    ``fused`` (``solve_core_fused``, kernel B2) and ``tracked``
-    (``solve_core_cold_tracked``); each takes an optional stats list and
-    parameters."""
-    from lexls_tpu_torch import solve_batched, solve_core_cold_tracked, solve_core_fused
+    inputs: ``exact`` (``solve_batched``, kernel B1 in every pass), and
+    ``fused`` (kernel B2) and ``tracked`` as the bench solves them
+    (``bench_extra_torch.config2_solver``); each takes an optional stats
+    list, and ``exact`` other parameters."""
+    from bench_extra_torch import config2_solver
+    from lexls_tpu_torch import Structure, solve_batched
 
     A = inp["A"]
     Bn, m, n = A.shape
     z = lambda *shape: torch.zeros(*shape, dtype=A.dtype, device=A.device)  # noqa: E731
     cold = [A, inp["lb"], inp["ub"], inp["ctr_type0"], inp["stamp0"], inp["next_stamp0"],
             z(Bn, n), z(Bn, m)]
-    reg = inp["reg"]
+    struct = Structure.of(prob)
+    fused, tracked = (config2_solver(prob, params, inp, mode) for mode in ("fused", "tracked"))
     return cold, {
-        "exact": lambda stats=None, params=params: solve_batched(*cold, reg, struct=struct,
+        "exact": lambda stats=None, params=params: solve_batched(*cold, inp["reg"], struct=struct,
                                                                  params=params),
-        "fused": lambda stats=None, params=params: solve_core_fused(
-            *cold, reg, struct=struct, params=params, x_guess_specified=False,
-            v0_specified=False),
-        "tracked": lambda stats=None, params=params: solve_core_cold_tracked(
-            *cold, struct=struct, params=params, stats=stats)[0],
+        "fused": lambda stats=None: fused(A),
+        "tracked": lambda stats=None: tracked(A, stats),
     }
 
 
@@ -2942,7 +2957,7 @@ def run_config2(dev, report):
     prob, params, inp = config2_problem(C2_B, torch.float32, dev)
     struct = Structure.of(prob)
     p, n = len(struct.lexlse_dims), prob.n_var
-    cold, fns = _config2_solvers(inp, struct, params)
+    cold, fns = _config2_solvers(prob, inp, params)
     short = dataclasses.replace(params, max_number_of_factorizations=SH_BUDGET)
     misses, states, calls = [], {}, {}
     for mode in C2_MODES:
@@ -2986,7 +3001,7 @@ def run_config2(dev, report):
         states[mode] = st
     # float64's exact tier on the same instances: float32's own error
     _, params64, inp64 = config2_problem(C2_B, torch.float64, dev)
-    _, fns64 = _config2_solvers(inp64, struct, params64)
+    _, fns64 = _config2_solvers(prob, inp64, params64)
     exact64 = fns64["exact"]()
     print(f"[config2] float64's exact tier: per-level |v| at most "
           f"{float(_level_norms(exact64.v, prob.dims).max()):.3e} (every level is feasible)")
@@ -3027,8 +3042,8 @@ def run_config2(dev, report):
     _tail_checks(dev, cold, inp["reg"], struct, params, short, misses, label="config2")
 
     # float64: the fused tier against the exact tier on the first C2_B64 instances
-    _, fns64 = _config2_solvers({k: v if k == "reg" else v[:C2_B64] for k, v in inp64.items()},
-                                struct, params64)
+    _, fns64 = _config2_solvers(prob, {k: v if k == "reg" else v[:C2_B64]
+                                       for k, v in inp64.items()}, params64)
     exact, fused = fns64["exact"](), fns64["fused"]()
     ints = ("status", "it", "ctr_type", "stamp", "next_stamp", "n_act", "n_deact", "n_fact")
     bad = [f for f in ints if not torch.equal(getattr(exact, f), getattr(fused, f))]
@@ -3042,6 +3057,369 @@ def run_config2(dev, report):
     print(f"[config2] phase wall {time.perf_counter() - t_phase:.1f} s")
     if misses:
         raise SystemExit("config2 phase failed:\n  " + "\n  ".join(misses))
+
+
+C2C_REPS, C2C_N = 3, 3  # chains per mode; solves per chain, the largest N of the bench's slope
+B2_F64_TOL_X = 1e-9  # B2 against its plain version on one instance in float64 (4.161e-13 read)
+# where found instances are saved: under the checkout's build/, which git ignores
+OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "config2_chain")
+
+
+def _log_pairs(r, b):
+    """Instance ``b``'s working-set log of a B2 result as (objective, row,
+    type, value) per entry."""
+    L = int(r.log_len[b])
+    return list(zip(r.log_obj[b, :L].tolist(), r.log_ctr[b, :L].tolist(),
+                    r.log_type[b, :L].tolist(), r.log_value[b, :L].tolist()))
+
+
+def _level_pivots(r):
+    """Per level of a B2 result's factor export: (rank, smallest accepted
+    pivot norm squared)."""
+    out = []
+    for k in range(r.ranks.shape[1]):
+        rk = int(r.ranks[0, k])
+        d = torch.diagonal(r.rpad[0, k]).double()[:rk] ** 2
+        out.append((rk, float(d.min()) if rk else None))
+    return out
+
+
+def _level0_b1(dev, A, lb, ub, ct, tol, d):
+    """B1 and its plain version on level 0 of the masked problem at working
+    set ``ct`` (B=1): each one's rank and the plain version's last pivot
+    column, and where B1 stopped short the largest live column norm squared
+    it left and the columns whose live norm squared is under ``tol`` (the
+    only ones whose choice stops the level).  ``d`` is level 0's row
+    count."""
+    from lexls_tpu_torch import CtrType
+    from lexls_tpu_torch.ops import panel_factorize, panel_factorize_ref
+
+    n = A.shape[-1]
+    act = (ct != int(CtrType.INACTIVE)).to(A.dtype)
+    rhs = torch.where(ct == int(CtrType.ACTIVE_LB), lb, ub)
+    blk = torch.cat([A * act[:, None], (rhs * act)[:, None]], 1)[None, :d].contiguous()
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None].contiguous()
+    args = (blk, pos, pos.clone(), torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.zeros(1, n, dtype=torch.int32, device=dev))
+    got, want = panel_factorize(*args, fr=0, tol=tol), panel_factorize_ref(*args, fr=0, tol=tol)
+    torch.cuda.synchronize()
+    rk, rw = int(got[3][0]), int(want[3][0])
+    left = got[0][0, rk:, :n].double().pow(2).sum(0)
+    rem = torch.nonzero(got[1][0] >= rk).flatten().tolist() if rk < d else []
+    under = {c: f"{float(left[c]):.3e}" for c in rem if float(left[c]) < tol}
+    print(f"[config2_chain B1 at B=1] level 0 ({d} active rows) at that working set: rank B1 {rk} / "
+          f"plain {rw}; the plain version's last pivot column {int(want[2][0, rw - 1])}; B1 "
+          f"stopped with largest live column norm squared "
+          f"{max((float(left[c]) for c in rem), default=float('nan')):.3e} left, and these "
+          f"columns under the tolerance {tol:.0e}: {under}")
+
+
+def _b2_one(dev, prob, params, A, lb, ub):
+    """B2 and its plain version on the card on one instance (B=1), cold from
+    phase 1 as ``solve_core_fused`` starts it, with the working-set log on:
+    prints both statuses and iterations and the first log entry (one per
+    iteration that changed the working set) at which they differ, with
+    both entries' values, so that a tie can be told from a decision.  Where
+    they part, B2 again paused at that iteration (each level's rank and
+    smallest pivot there), and B1 against its plain version on level 0 at
+    the working set both had then.  Then both in float64, where B2 must
+    give its plain version's status and log, and x to B2_F64_TOL_X:
+    returns the misses."""
+    import dataclasses
+
+    from lexls_tpu_torch import Structure
+    from lexls_tpu_torch.lexlsi import active_set_kwargs
+    from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
+
+    struct = Structure.of(prob)
+    logged = dataclasses.replace(params, log_working_set_enabled=True)
+    misses = []
+    for dtype in (A.dtype, torch.float64):
+        Ad, lbd, ubd = A.to(dtype), lb.to(dtype), ub.to(dtype)
+        s = _phase1(Ad[None], lbd[None], ubd[None], struct, logged)
+        args, kw = _state_args(Ad[None], s), active_set_kwargs(struct, logged, dev)
+        got, want = fused_active_set(*args, **kw), fused_active_set_ref(*args, **kw)
+        torch.cuda.synchronize()
+        gl, wl = _log_pairs(got, 0), _log_pairs(want, 0)
+        first = next((k for k, (g, w) in enumerate(zip(gl, wl)) if g[:3] != w[:3]),
+                     None if len(gl) == len(wl) else min(len(gl), len(wl)))
+        where = "none: the logs are equal" if first is None else (
+            f"entry {first}: B2 {gl[first] if first < len(gl) else 'no entry'}, plain "
+            f"{wl[first] if first < len(wl) else 'no entry'} (objective, row, type, value)")
+        name = str(dtype).replace("torch.", "")
+        print(f"[config2_chain B2 at B=1 {name}] status B2 {int(got.status[0])} / plain "
+              f"{int(want.status[0])} (-1 is a spent budget), iterations {int(got.it[0])} / "
+              f"{int(want.it[0])}, log entries {len(gl)} / {len(wl)}; first differing "
+              f"working-set change: {where}; max |x B2 - x plain| "
+              f"{float((got.x - want.x).abs().max()):.3e}")
+        if dtype == torch.float64:
+            xerr = float((got.x - want.x).abs().max())
+            if first is not None or not torch.equal(got.status, want.status) \
+                    or not xerr <= B2_F64_TOL_X:
+                misses.append(f"B2 at B=1 float64 left its plain version: status "
+                              f"{int(got.status[0])} / {int(want.status[0])}, first differing "
+                              f"log entry {first}, max |x err| {xerr:.3e} (bound "
+                              f"{B2_F64_TOL_X:.0e})")
+        if first is None:
+            continue
+        g = fused_active_set(*args, iter_cap=first + 1, **kw)
+        print(f"[config2_chain B2 at B=1 {name}] B2 paused after {first + 1} iterations: (rank, "
+              f"smallest pivot norm squared) per level {_level_pivots(g)}")
+        # the working set both had then: phase 1's with the logged changes applied
+        ct = s.ctr_type[0].clone()
+        for _, row, typ, _ in wl[:first]:
+            ct[row] = typ
+        _level0_b1(dev, Ad, lbd, ubd, ct, params.tol_linear_dependence, prob.dims[0])
+    return misses
+
+
+def run_config2_chain(dev, report):
+    """The chain of ``bench_extra_torch.bench_inequality_cold`` replayed on
+    the card: config 2 (B=C2_B, float32, cold) through
+    ``bench_extra_torch.config2_solver`` and ``cold_chain``, the functions
+    the bench times, C2C_REPS times in the tracked and in the fused mode,
+    each a chain of C2C_N solves (every A the one before moved by 1e-9
+    times the NaN-free sum of its x, so the inputs depend on the card's own
+    float32 answers), with the launch counts zeroed just before each chain
+    and read just after.  Each instance that ends in another status than
+    PROBLEM_SOLVED is printed (mode, chain, solve, index, status,
+    iterations; the first UNSOLVED_AT of a solve, as the bench's record
+    names them) and saved with its A, bounds and x under
+    ``build/config2_chain/``; the first is then solved again at B=1
+    by B2 and by its plain version on the card (:func:`_b2_one`).  Prints
+    whether the chains of one mode are bitwise equal.
+    Fails if a chain does not launch both kernels or gives x of another
+    shape or a NaN x, or if B2 leaves its plain version in float64."""
+    from bench_extra_torch import UNSOLVED_AT, cold_chain, config2_problem, config2_solver
+    from lexls_tpu_torch.lexlsi import full_fp32
+
+    t_phase = time.perf_counter()
+    full_fp32()
+    prob, params, inp = config2_problem(C2_B, torch.float32, dev)
+    p, n = len(prob.dims), prob.n_var
+    found, misses, total = [], [], 0
+    for mode in ("tracked", "fused"):
+        solve = config2_solver(prob, params, inp, mode)
+        first = None
+        for rep in range(C2C_REPS):
+            t0 = time.perf_counter()
+            (_, steps), launches = _counted(lambda: cold_chain(solve, inp["A"], C2C_N))
+            wall = time.perf_counter() - t0
+            if rep == 0:
+                first = steps
+                for k in report:
+                    report[k].setdefault("launches_by_path", {})[f"config2_chain_{mode}"] = \
+                        launches[k]
+                if launches["panel_factorize"] < p * C2C_N or launches["fused_active_set"] < C2C_N:
+                    misses.append(f"{mode}: launches {launches} for {C2C_N} solves")
+            else:
+                same = all(torch.equal(a.status, b.status) and torch.equal(a.x, b.x)
+                           for (_, a), (_, b) in zip(first, steps))
+                print(f"[config2_chain {mode}] chain {rep} bitwise equal to chain 0 (statuses "
+                      f"and x of every solve): {same}")
+            unsolved = []
+            for k, (A, st) in enumerate(steps):
+                bad = torch.nonzero(st.status != 0).flatten().tolist()
+                unsolved.append(len(bad))
+                if tuple(st.x.shape) != (C2_B, n) or not bool(torch.isfinite(st.x).all()):
+                    misses.append(f"{mode} chain {rep} solve {k}: x of shape "
+                                  f"{tuple(st.x.shape)} or not finite")
+                for i in bad[:UNSOLVED_AT]:
+                    print(f"[config2_chain] unsolved: mode {mode}, chain {rep}, solve {k}, index "
+                          f"{i}: status {int(st.status[i])}, iterations {int(st.it[i])}, "
+                          f"factorizations {int(st.n_fact[i])}")
+                    found.append((mode, rep, k, i, A[i], st))
+            total += sum(unsolved)
+            print(f"[config2_chain {mode}] chain {rep}: {C2C_N} solves at B={C2_B} float32, "
+                  f"{wall:.3f} s host wall; unsolved per solve {unsolved}; launches {launches}; "
+                  f"iterations per solve {[int(st.it.sum()) for _, st in steps]}")
+    print(f"[config2_chain] {2 * C2C_REPS} chains of {C2C_N} solves ({2 * C2C_REPS * C2C_N * C2_B} "
+          f"cold solves): {total} not PROBLEM_SOLVED; {_card()}")
+    if not found:
+        print(f"[config2_chain] no instance ended unsolved in the {2 * C2C_REPS} chains "
+              f"(tracked and fused, {C2C_REPS} each, N={C2C_N}, B={C2_B}, float32)")
+    seen = set()
+    os.makedirs(OUT, exist_ok=True)
+    for mode, rep, k, i, A, st in found:
+        if (mode, k, i) in seen:  # the same instance of a repeated chain
+            continue
+        seen.add((mode, k, i))
+        path = os.path.join(OUT, f"{mode}_solve{k}_index{i}.npz")
+        np.savez(path, A=A.cpu().numpy(), lb=inp["lb"][i].cpu().numpy(),
+                 ub=inp["ub"][i].cpu().numpy(), x=st.x[i].cpu().numpy(),
+                 ctr_type=st.ctr_type[i].cpu().numpy(), status=int(st.status[i]),
+                 it=int(st.it[i]), n_fact=int(st.n_fact[i]), dims=np.asarray(prob.dims),
+                 n_var=n, mode=mode, solve=k, index=i)
+        print(f"[config2_chain] saved {path}")
+    if found:
+        _, _, _, i, A, _ = found[0]
+        misses += _b2_one(dev, prob, params, A, inp["lb"][i], inp["ub"][i])
+    print(f"[config2_chain] phase wall {time.perf_counter() - t_phase:.1f} s")
+    if misses:
+        raise SystemExit("config2_chain phase failed:\n  " + "\n  ".join(misses))
+
+
+INST_B, INST_T = 384, 3  # the installed package's fused warm sequence: the bench shape, T=3
+INST_TOL_X = 1e-5
+# run by a fresh interpreter outside the checkout, with the installed
+# package on its path: the fused sequence on the inputs that the parent
+# saved, with the kernels' launch counts zeroed just before and read just after
+_INSTALLED_RUN = r"""
+import json, os, sys, time
+import torch
+import lexls_tpu_torch as lt
+from lexls_tpu_torch.ops import _build, fused_active_set, panel_factorize
+
+tmp = sys.argv[1]
+d = torch.load(os.path.join(tmp, "inputs.pt"))
+t0 = time.perf_counter()
+info = _build.build()
+build_s = time.perf_counter() - t0
+dev = torch.device("cuda", 0)
+A, lb, ub, reg = (d[k].to(dev) for k in ("A", "lb", "ub", "reg"))
+struct = lt.Structure(dims=tuple(d["dims"]), n_var=int(d["n_var"]))
+params = lt.ParametersLexLSI(**d["params"])
+panel_factorize.launches = fused_active_set.launches = 0
+torch.cuda.synchronize()
+x, v, status = lt.solve_sequence_batched_fused(A, lb, ub, reg, struct=struct,
+                                               params=params)[:3]
+torch.cuda.synchronize()
+torch.save({"x": x.cpu(), "status": status.cpu()}, os.path.join(tmp, "out.pt"))
+print(json.dumps(dict(
+    file=lt.__file__, csrc=str(_build.CSRC), library=str(info.path), nvcc_s=info.seconds, build_s=build_s,
+    launches={"panel_factorize": panel_factorize.launches,
+              "fused_active_set": fused_active_set.launches},
+    jax_package=sorted(m for m in sys.modules if m.split(".")[0] == "lexls_tpu"))))
+"""
+
+
+def _tree(path):
+    """{relative path: (size, mtime in ns)} of every file under ``path``."""
+    out = {}
+    for dirpath, _, files in os.walk(path):
+        for f in files:
+            st = os.stat(os.path.join(dirpath, f))
+            out[os.path.relpath(os.path.join(dirpath, f), path)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def install_port(root, tmp, target):
+    """Install the package as a user would: the wheel built by ``pip
+    wheel`` from a copy of the tree ``root`` (``pyproject.toml``,
+    ``README.md``, both packages; building in place would write into the
+    checkout) under ``tmp``, then ``pip install --target target``, pip
+    never looking at an index.  Raises naming pip or setuptools where one
+    does not import.  Returns the wheel's path."""
+    import glob
+    import importlib
+    import shutil
+
+    for module in ("setuptools", "pip"):
+        importlib.import_module(module)
+    src = os.path.join(tmp, "src")
+    os.makedirs(src)
+    for f in ("pyproject.toml", "README.md"):
+        shutil.copy(os.path.join(root, f), src)
+    for d in ("lexls_tpu", "lexls_tpu_torch"):
+        shutil.copytree(os.path.join(root, d), os.path.join(src, d),
+                        ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
+    pip = [sys.executable, "-m", "pip", "--disable-pip-version-check", "--no-cache-dir"]
+    env = dict(os.environ, PIP_NO_INDEX="1")
+    subprocess.run(pip + ["wheel", "--no-deps", "--no-build-isolation", "--no-index", "-w",
+                          os.path.join(tmp, "dist"), src], cwd=tmp, env=env, check=True,
+                   capture_output=True, timeout=300)
+    wheel, = glob.glob(os.path.join(tmp, "dist", "*.whl"))
+    subprocess.run(pip + ["install", "--no-deps", "--no-index", "--target", target, wheel],
+                   cwd=tmp, env=env, check=True, capture_output=True, timeout=300)
+    return wheel
+
+
+def run_installed(dev, report):
+    """The port installed, not run from the checkout: installed into a
+    temporary directory (:func:`install_port`), then imported by a fresh
+    interpreter whose working directory is outside the checkout, whose path
+    holds the install and not the checkout, and whose ``XDG_CACHE_HOME`` is a
+    fresh temporary directory; there it builds the kernels from the
+    installed sources and runs one fused warm sequence of the bench shape
+    (B=INST_B, T=INST_T, float32) on the card, with its launches counted.
+    Holds: the package and its sources come from the install, the library
+    was built into that cache under the name of the checkout's sources,
+    the checkout's build directory was not touched, nothing of
+    ``lexls_tpu`` was imported, every solve is PROBLEM_SOLVED and x is the
+    checkout's same call's to INST_TOL_X relative.  Prints the build's
+    seconds beside the card's name and power limit."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from lexls_tpu_torch import Structure, solve_sequence_batched_fused
+    from lexls_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    prob, params, base, drifts, lb, ub = _bench_problem(torch.float32, dev, INST_B)
+    m = prob.n_ctr
+    A = (base[:, None] + drifts[None, :INST_T]).contiguous()
+    lbs, ubs = (b.expand(INST_B, INST_T, m).contiguous() for b in (lb, ub))
+    reg = torch.as_tensor(prob.regularization, device=dev).to(torch.float32)
+    kw = {f.name: getattr(params, f.name) for f in dataclasses.fields(params)
+          if getattr(params, f.name) != f.default}
+    want = solve_sequence_batched_fused(A, lbs, ubs, reg, struct=Structure.of(prob),
+                                        params=params)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_installed_")
+    try:
+        target, cache = os.path.join(tmp, "site"), os.path.join(tmp, "cache")
+        wheel = install_port(root, tmp, target)
+        torch.save(dict(A=A.cpu(), lb=lbs.cpu(), ub=ubs.cpu(), reg=reg.cpu(),
+                        dims=list(prob.dims), n_var=prob.n_var, params=kw),
+                   os.path.join(tmp, "inputs.pt"))
+        before = _tree(_build.BUILD_DIR)
+        env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "XDG_CACHE_HOME")}
+        env.update(PYTHONPATH=target, XDG_CACHE_HOME=cache, PYTHONNOUSERSITE="1")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _INSTALLED_RUN, tmp], cwd=tmp, env=env,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit(f"installed phase: the installed package failed ({proc.returncode})"
+                             f":\n{proc.stderr[-4000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        out = torch.load(os.path.join(tmp, "out.pt"))
+        touched = _tree(_build.BUILD_DIR) != before
+        lib = os.path.join(cache, "lexls_tpu_torch", _build.build().path.name)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    x, status = out["x"], out["status"]
+    wx = want[0].cpu()
+    err = float(((x.double() - wx.double()).abs() / (1 + wx.double().abs())).max())
+    solved = int((status == 0).sum())
+    print(f"[installed] pip install --target of the wheel {os.path.basename(wheel)}; a fresh interpreter outside the checkout imported "
+          f"{os.path.relpath(got['file'], tmp)}, sources {os.path.relpath(got['csrc'], tmp)}, "
+          f"built {os.path.relpath(got['library'], tmp)} in {got['nvcc_s']:.2f} s of nvcc "
+          f"({got['build_s']:.2f} s the call; {_card()}); subprocess {wall:.1f} s; launches "
+          f"{got['launches']}; modules of lexls_tpu imported {got['jax_package']}; checkout's "
+          f"build directory touched {touched}")
+    print(f"[installed] fused warm sequence B={INST_B} T={INST_T} float32: solved "
+          f"{solved}/{status.numel()}; max |x - x of the checkout| / (1 + |x|) {err:.3e} "
+          f"(bound {INST_TOL_X:.0e}); bitwise equal {torch.equal(x, wx)}")
+    for k in report:
+        report[k].setdefault("launches_by_path", {})["installed"] = got["launches"][k]
+    misses = [what for what, bad in (
+        ("the package was not imported from the install",
+         not got["file"].startswith(os.path.join(tmp, "site", "lexls_tpu_torch"))),
+        ("the sources are not the installed ones",
+         got["csrc"] != os.path.join(tmp, "site", "lexls_tpu_torch", "csrc")),
+        ("the library was not built into the fresh cache under the sources' name",
+         got["library"] != lib or got["nvcc_s"] <= 0),
+        ("the checkout's build directory was touched", touched),
+        ("a module of lexls_tpu was imported", got["jax_package"]),
+        ("a kernel of the path was not launched", min(got["launches"].values()) == 0),
+        ("not every solve is PROBLEM_SOLVED", solved != status.numel()
+         or not bool((want[2] == 0).all())),
+        (f"x off the checkout's by {err:.3e}", not err <= INST_TOL_X)) if bad]
+    print(f"[installed] phase wall {time.perf_counter() - t_phase:.1f} s")
+    if misses:
+        raise SystemExit("installed phase failed:\n  " + "\n  ".join(misses))
 
 
 def main():
@@ -3100,6 +3478,8 @@ def main():
         "sharded": lambda: run_sharded(dev, report),
         "slabs": lambda: run_slabs(dev, report),
         "config2": lambda: run_config2(dev, report),
+        "config2_chain": lambda: run_config2_chain(dev, report),
+        "installed": lambda: run_installed(dev, report),
     }
     # with phase names as arguments, only those run and no result is printed
     # (for work on one kernel); with none, as the check runs it, all do

@@ -3,7 +3,11 @@
 Every ``lexls_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc`` per source and all started together, and the
 objects are linked into one shared library with a plain C interface, at
-first use, into ``build/lexls_tpu_torch/`` at the root of the checkout.  The
+first use: into ``build/lexls_tpu_torch/`` at the root of a checkout (a
+``pyproject.toml`` beside the package), and for an installed package into
+``$XDG_CACHE_HOME/lexls_tpu_torch`` (``~/.cache/lexls_tpu_torch`` when that
+variable is unset), since site-packages is no place to write.  The sources
+ship with the package (``package-data`` in ``pyproject.toml``).  The
 library is named after a hash of the sources, so an edited source is
 rebuilt and a stale library is never loaded.  It is loaded with
 ``ctypes``: pointers and the CUDA stream go in as ``c_void_p``, and every
@@ -23,7 +27,17 @@ from pathlib import Path
 from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lexls_tpu_torch"
+
+
+def _build_dir() -> Path:
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "lexls_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "lexls_tpu_torch"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +60,9 @@ def _nvcc() -> str:
 def build() -> BuildInfo:
     """Compile the kernels unless a library of the same sources exists."""
     sources = sorted(CSRC.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA source (*.cu) in {CSRC}: the package was installed "
+                           "without its csrc/ (package-data in pyproject.toml)")
     digest = hashlib.sha1()
     for f in sorted(CSRC.glob("*.cu*")):
         digest.update(f.name.encode() + f.read_bytes())

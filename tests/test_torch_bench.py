@@ -331,12 +331,52 @@ def test_secondary_records(monkeypatch, capsys, fn, mode, metric):
     want = {"equality_lqr_solves_per_s": None, "inequality_cold_solves_per_s": 0,
             "deep_regularized_cold_solves_per_s": 2}[metric]
     assert rec["nonfinite_x"] == 0 and rec.get("unsolved") == want
+    if want is not None:  # the unsolved instances named, each with its counters
+        assert [u["index"] for u in rec["unsolved_at"]] == list(range(want))
+        assert all(u["status"] == 2 and u["n_fact"] == 64 and u["it"] > 0
+                   for u in rec["unsolved_at"])
     assert rec["dtype"] == "float64" and capsys.readouterr().out.strip() == \
         __import__("json").dumps(rec)
     if mode is not None:
         assert rec["config"].endswith(mode)
         with pytest.raises(ValueError):
             fn(CPU, F64, 2, "vmap")
+
+
+def test_record_names_the_first_unsolved(capsys):
+    """``unsolved_at`` holds the first UNSOLVED_AT instances not solved, in
+    index order, with status, iterations and factorizations; the count
+    beside it counts them all, and it is empty when every instance solved."""
+    import types
+
+    status = torch.tensor([0, 2, 0, 1] + [2] * 10, dtype=torch.int32)
+    state = types.SimpleNamespace(status=status, it=torch.arange(14, dtype=torch.int32),
+                                  n_fact=torch.arange(14, dtype=torch.int32) + 100)
+    x = torch.zeros(14, 3, dtype=F64)
+    rec = bxt._record("m", 14, 1.0, "c", F64, x, state)
+    want = [i for i in range(14) if status[i] != 0][:bxt.UNSOLVED_AT]
+    assert rec["unsolved"] == 12 and len(rec["unsolved_at"]) == bxt.UNSOLVED_AT == 8
+    assert rec["unsolved_at"] == [{"index": i, "status": int(status[i]), "it": i,
+                                   "n_fact": 100 + i} for i in want]
+    solved = types.SimpleNamespace(status=torch.zeros(14, dtype=torch.int32), it=state.it,
+                                   n_fact=state.n_fact)
+    rec = bxt._record("m", 14, 1.0, "c", F64, x, solved)
+    assert rec["unsolved"] == 0 and rec["unsolved_at"] == []
+    capsys.readouterr()
+
+
+def test_cold_chain_moves_each_a_by_the_last_answer():
+    """The bench's chain, which ``chip_smoke.py config2_chain`` replays: N
+    solves, each A the one before plus 1e-9 times the NaN-free sum of its
+    x, and the scalar the sum of every solve's iterations."""
+    prob, params, inp = bxt.config2_problem(2, F64, CPU)
+    solve = bxt.config2_solver(prob, params, inp, "fused")
+    acc, steps = bxt.cold_chain(solve, inp["A"], 3)
+    assert len(steps) == 3 and steps[0][0] is inp["A"]
+    for (a0, s0), (a1, _) in zip(steps, steps[1:]):
+        assert torch.equal(a1, a0 + 1e-9 * s0.x.nansum())
+    assert float(acc) == sum(int(st.it.sum()) for _, st in steps)
+    assert all(bool((st.status == 0).all()) for _, st in steps)
 
 
 def test_run_all_reads_the_environment(monkeypatch):

@@ -118,6 +118,7 @@ else:
         st, metrics = lt.make_sharded_solver_2d(mesh, struct("s_"), params, mode=mode)(*args)
         keep(mode + "_", (st.x, st.v, st.status, st.it, st.n_fact, st.ctr_type), metrics)
 np.savez(f"{d}/out_{rank}.npz", **out)
+dist.barrier()  # no rank tears its connections down while another still uses them
 dist.destroy_process_group()
 '''
 
