@@ -142,6 +142,7 @@ arguments (``python3 chip_smoke.py panel fused``) only those phases run
 and no result is printed.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -180,6 +181,33 @@ def _card():
     """The card's name and power limit as nvidia-smi prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+KERNELS = ("panel_factorize", "fused_active_set")
+
+
+def _launch_counts():
+    """{kernel: launches} since the last ``tracing.reset()``: the port's
+    tracing counters ``launches.<C entry>``, which count while tracing is on
+    (inside ``tracing.recording()`` or a profiler)."""
+    from lexls_tpu_torch import tracing
+
+    counters = tracing.snapshot().counters
+    return {k: sum(v for name, v in counters.items() if name.startswith(f"launches.lexls_{k}_"))
+            for k in KERNELS}
+
+
+@contextlib.contextmanager
+def _counting():
+    """Count the kernels' launches inside the block: the dict it yields
+    holds {kernel: launches} once the block ends."""
+    from lexls_tpu_torch import tracing
+
+    counts = {}
+    tracing.reset()
+    with tracing.recording():
+        yield counts
+    counts.update(_launch_counts())
 
 
 def _cuda_times(fn, reps, warmup=True):
@@ -445,25 +473,24 @@ def _print_bound(label, args, kw, res, struct, n=N_VAR):
 
 
 def _own_device_time(label, kernel, fn, calls):
-    """A kernel's own device time per call, by CUDA events that the wrapper
-    records right around its launch (``_build.LAUNCH_EVENTS``), beside the
+    """A kernel's own device time per call, by CUDA events recorded right
+    around its launch (``tracing.recording(device_events=True)``), beside the
     count and device time of everything else the wrapper launches, from a
     torch.profiler trace of the same calls: the CUDA-event time of the whole
     call cannot tell the kernel from the host's time to issue it.  ``kernel``
     is a part of the kernel's name in csrc/.  Returns (own ms, other
     launches per call)."""
-    from lexls_tpu_torch.ops import _build
+    from lexls_tpu_torch import tracing
 
     fn()
     torch.cuda.synchronize()
-    _build.LAUNCH_EVENTS = events = []
-    try:
+    tracing.reset()
+    with tracing.recording(device_events=True):
         for _ in range(calls):
             torch.cuda.synchronize()  # an idle card: the events bracket the kernel alone
             fn()
         torch.cuda.synchronize()
-    finally:
-        _build.LAUNCH_EVENTS = None
+    events = tracing.snapshot().device_events
     own = statistics.median(start.elapsed_time(end) for _, start, end in events)
     rows, wall_ms = _profile(lambda: [fn() for _ in range(calls)])
     others = sum(r[1] for r in rows if kernel not in r[2])
@@ -800,7 +827,6 @@ def check_exact_tier(dev):
 
     from lexls_tpu_torch import Structure, batched_initial_arrays, solve_core_batched
     from lexls_tpu_torch import solve_core_fused
-    from lexls_tpu_torch.ops import panel_factorize
 
     prob, params, base, drifts, lb, ub = _bench_problem(torch.float64, dev)
     params = dataclasses.replace(params, log_working_set_enabled=True,
@@ -811,13 +837,13 @@ def check_exact_tier(dev):
             *batched_initial_arrays(prob, B, dev), None)
     kw = dict(struct=struct, params=params, x_guess_specified=False, v0_specified=False)
     fused = solve_core_fused(*args, **kw)
-    panel_factorize.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    exact = solve_core_batched(*args, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, passes, p = panel_factorize.launches, int(exact.it.max()), len(struct.lexlse_dims)
+    with _counting() as counts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exact = solve_core_batched(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, passes, p = counts["panel_factorize"], int(exact.it.max()), len(struct.lexlse_dims)
     ints = ("status", "it", "ctr_type", "stamp", "next_stamp", "n_act", "n_deact", "n_fact")
     bad = [f for f in ints + _LOG_FIELDS if f != "log_value"
            and not torch.equal(getattr(exact, f), getattr(fused, f))]
@@ -1150,7 +1176,6 @@ def run_main_paths(dev, report):
     its launch counts, then both timed in interleaved rounds."""
     from bench_torch import TRACKED
     from lexls_tpu_torch import Structure, solve_sequence_batched_fused
-    from lexls_tpu_torch.ops import fused_active_set, panel_factorize
 
     prob, params, base, drifts, lb, ub = _bench_problem(torch.float32, dev)
     struct = Structure.of(prob)
@@ -1170,14 +1195,12 @@ def run_main_paths(dev, report):
     def drive(label, fn):
         """One run of a path with the launch counts zeroed just before and
         read just after; checks shape, finiteness and statuses."""
-        panel_factorize.launches = fused_active_set.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(T_MAX)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"panel_factorize": panel_factorize.launches,
-                    "fused_active_set": fused_active_set.launches}
+        with _counting() as launches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(T_MAX)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         x, v, status, it = out[:4]
         print(f"[{label}] B={B} T={T_MAX} float32: {wall:.3f} s host wall (first run); "
               f"launches {launches}; status counts "
@@ -1276,7 +1299,6 @@ def run_new_paths(dev, report):
 
     from lexls_tpu_torch import (Structure, solve_core_batched, solve_sequence_batched_fused,
                                  solve_sequence_batched_native)
-    from lexls_tpu_torch.ops import fused_active_set, panel_factorize
     from lexls_tpu_torch.sequence import _device_initial_activation
 
     T = 3
@@ -1290,14 +1312,12 @@ def run_new_paths(dev, report):
                                cycling_handling_enabled=True)
 
     def drive(label, fn, key):
-        panel_factorize.launches = fused_active_set.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(T)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"panel_factorize": panel_factorize.launches,
-                    "fused_active_set": fused_active_set.launches}
+        with _counting() as launches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(T)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         x, v, status, it = out[:4]
         print(f"[{label}] B={B} T={T} float32: {wall:.3f} s host wall (first run); launches "
               f"{launches}; status counts {torch.bincount(status.flatten() + 1).tolist()} "
@@ -1496,7 +1516,6 @@ def run_regularized(dev, report):
     from bench_extra_torch import REG_DIMS, REG_N
     from lexls_tpu_torch import (Structure, batched_initial_arrays, solve_core_batched,
                                  solve_core_cold_tracked, solve_sequence_batched_native)
-    from lexls_tpu_torch.ops import fused_active_set, panel_factorize
     from lexls_tpu_torch.sequence import _device_initial_activation
     from lexls_tpu_torch.types import RegularizationType as RT
 
@@ -1521,14 +1540,12 @@ def run_regularized(dev, report):
                                       x_guess_specified=False, v0_specified=False)
 
         stats = []
-        panel_factorize.launches = fused_active_set.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = solve(stats)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"panel_factorize": panel_factorize.launches,
-                    "fused_active_set": fused_active_set.launches}
+        with _counting() as launches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = solve(stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         for k in report:
             report[k].setdefault("launches_by_path", {})[key] = launches[k]
         if launches["panel_factorize"] == 0 or launches["fused_active_set"] != 0 \
@@ -1580,13 +1597,12 @@ def run_regularized(dev, report):
         (REG_T,) + prob.A.shape), axis=0), device=dev).to(torch.float32)
     A_seq = (A[:, None] + drifts[None]).contiguous()
     lb_seq, ub_seq = lb[:, None].expand(-1, REG_T, -1), ub[:, None].expand(-1, REG_T, -1)
-    panel_factorize.launches = fused_active_set.launches = 0
-    x, _, status, it, _, ct = solve_sequence_batched_native(A_seq, lb_seq, ub_seq, reg,
-                                                            struct=struct, params=params)
-    b1 = panel_factorize.launches
+    with _counting() as launches:
+        x, _, status, it, _, ct = solve_sequence_batched_native(A_seq, lb_seq, ub_seq, reg,
+                                                                struct=struct, params=params)
+    b1 = launches["panel_factorize"]
     for k in report:
-        report[k]["launches_by_path"]["regularized_native"] = (
-            b1 if k == "panel_factorize" else fused_active_set.launches)
+        report[k]["launches_by_path"]["regularized_native"] = launches[k]
     finite = torch.isfinite(x).all(2)
     if int((~finite).sum()) > finite.numel() // 100 or b1 == 0:
         raise SystemExit("regularized sequence: x not finite in over 1% of the solves, or B1 "
@@ -1618,15 +1634,16 @@ def run_regularized(dev, report):
     for key, (solve, params, _, _) in paths.items():
         short = dataclasses.replace(params, max_number_of_factorizations=4)
         stats = []
-        panel_factorize.launches = 0
-        rows, wall_ms = _profile(lambda: solve(stats, params=short))
-        steps = panel_factorize.launches // p - 1 + (stats[0][0] if stats else 0)
+        with _counting() as launches:
+            rows, wall_ms = _profile(lambda: solve(stats, params=short))
+        b1 = launches["panel_factorize"]
+        steps = b1 // p - 1 + (stats[0][0] if stats else 0)
         dev_ms = sum(r[0] for r in rows) / 1e3
         per_pass[key] = (wall_ms / steps, dev_ms / steps, sum(r[1] for r in rows) / steps)
         print(f"[profile {key}] budget 4, {steps} passes or trips: a pass or trip takes host "
               f"{wall_ms / steps:.3f} ms, device {dev_ms / steps:.3f} ms in "
               f"{sum(r[1] for r in rows) / steps:.1f} kernel launches "
-              f"({panel_factorize.launches / steps:.2f} of B1 by its count); device busy "
+              f"({b1 / steps:.2f} of B1 by its count); device busy "
               f"{100 * dev_ms / wall_ms:.1f}% of the profiled wall")
         for us, count, name in rows[:3]:
             print(f"  {us / 1e3:10.3f} ms  {count:6d} calls  {name[:90]}")
@@ -1709,6 +1726,15 @@ def _route_line(label, ok, total, seconds, launches, misses):
 
 
 def run_golden(dev, report):
+    """The golden phase (:func:`_golden`) with tracing on, so that its
+    launch counters count."""
+    from lexls_tpu_torch import tracing
+
+    with tracing.recording():
+        _golden(dev, report)
+
+
+def _golden(dev, report):
     """The C++ golden corpus on the card (``tests/golden``, the only oracle
     from the real lexls), each route driven with the launch counts zeroed
     just before it and read just after.  (a) ``lexls_tpu_torch.solve`` on
@@ -1735,7 +1761,8 @@ def run_golden(dev, report):
                                  batched_initial_arrays, solve, solve_core_batched,
                                  solve_core_cold_tracked, solve_core_fused)
     from lexls_tpu_torch.lexlsi import _initial_state, active_set_kwargs
-    from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref, panel_factorize
+    from lexls_tpu_torch import tracing
+    from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
 
     t_phase = time.perf_counter()
     cases = _golden_cases()
@@ -1746,15 +1773,14 @@ def run_golden(dev, report):
                                 if regularized else RegularizationType.NONE)
 
     def zero():
-        panel_factorize.launches = fused_active_set.launches = 0
+        tracing.reset()
         torch.cuda.synchronize()
         return time.perf_counter()
 
     def read(key, t0):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"panel_factorize": panel_factorize.launches,
-                    "fused_active_set": fused_active_set.launches}
+        launches = _launch_counts()
         for k in report:
             report[k].setdefault("launches_by_path", {})[key] = launches[k]
         return seconds, launches
@@ -1763,11 +1789,11 @@ def run_golden(dev, report):
     ok_a, results, b1_short, seconds_of = 0, {}, [], {}
     t0 = zero()
     for name, prob, kw, gold, regularized in cases:
-        before, t_solve = panel_factorize.launches, time.perf_counter()
+        before, t_solve = _launch_counts()["panel_factorize"], time.perf_counter()
         res = solve(prob, params_of(regularized), device="cuda", **kw)  # NumPy out: synced
         seconds_of[name] = time.perf_counter() - t_solve
         p = len(Structure.of(prob).lexlse_dims)
-        if panel_factorize.launches - before < p * res.n_iterations:
+        if _launch_counts()["panel_factorize"] - before < p * res.n_iterations:
             b1_short.append(name)
         results[name] = res
         norms, want = _violation_norms(prob, res.x), _gold_norms(prob, gold)
@@ -1938,8 +1964,8 @@ def run_equality(dev, report):
     from lexls_tpu_torch import (EqualityHierarchy, LexLSE, ParametersLexLSE,
                                  RegularizationType, solve_equality_batched)
     from lexls_tpu_torch.io import dat as io_dat
-    from lexls_tpu_torch.ops import _build, factorize_fast_batched, fused_active_set, \
-        panel_factorize
+    from lexls_tpu_torch import tracing
+    from lexls_tpu_torch.ops import factorize_fast_batched
 
     t_phase = time.perf_counter()
     params = ParametersLexLSE(tol_linear_dependence=EQ_TOL)
@@ -1949,12 +1975,7 @@ def run_equality(dev, report):
     def solve_counted(key, fn):
         """``fn()`` with the launch counts zeroed just before and read just
         after, filed under ``key``."""
-        panel_factorize.launches = fused_active_set.launches = 0
-        torch.cuda.synchronize()
-        out = fn()
-        torch.cuda.synchronize()
-        launches = {"panel_factorize": panel_factorize.launches,
-                    "fused_active_set": fused_active_set.launches}
+        out, launches = _counted(fn)
         for k in report:
             report[k].setdefault("launches_by_path", {})[key] = launches[k]
         return out, launches
@@ -1995,13 +2016,12 @@ def run_equality(dev, report):
 
         times = _cuda_times(call, EQ_REPS)
         med = statistics.median(times)
-        _build.LAUNCH_EVENTS = events = []
-        try:
+        tracing.reset()
+        with tracing.recording(device_events=True):
             for _ in range(EQ_REPS):
                 call()
             torch.cuda.synchronize()
-        finally:
-            _build.LAUNCH_EVENTS = None
+        events = tracing.snapshot().device_events
         own = sum(s.elapsed_time(e) for n_, s, e in events if "panel" in n_) / EQ_REPS
         host = []
         for _ in range(EQ_REPS):
@@ -2203,8 +2223,6 @@ def _launches_of(module, name, fn, keep, rows):
                      [o[rows].clone() for o in out], kw, args[0].shape[0]))
         return out
 
-    # the wrapper counts its launches on the name it is bound to
-    spy.launches = 0
     setattr(module, name, spy)
     try:
         fn()
@@ -2285,14 +2303,11 @@ def _tail_checks(dev, cold, reg, struct, params, short, misses, label="sharded")
 def _counted(fn):
     """``fn()`` with the kernels' launch counts zeroed just before and read
     just after: (its result, {kernel: launches})."""
-    from lexls_tpu_torch.ops import fused_active_set, panel_factorize
-
-    panel_factorize.launches = fused_active_set.launches = 0
-    torch.cuda.synchronize()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, {"panel_factorize": panel_factorize.launches,
-                 "fused_active_set": fused_active_set.launches}
+    with _counting() as launches:
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+    return out, launches
 
 
 def _xla_passes(mesh, struct, params, cold, reg):
@@ -2950,7 +2965,7 @@ def run_config2(dev, report):
 
     from bench_extra_torch import config2_problem
     from lexls_tpu_torch import Structure
-    from lexls_tpu_torch.ops import _build
+    from lexls_tpu_torch import tracing
     from lexls_tpu_torch.ops import fused as fused_mod
 
     t_phase = time.perf_counter()
@@ -3018,14 +3033,13 @@ def run_config2(dev, report):
                                                   for k, v in calls.items()) + f"; {_card()}")
 
     # B2's own device time and its bound in the fused call
-    _build.LAUNCH_EVENTS = events = []
-    try:
+    tracing.reset()
+    with tracing.recording(device_events=True):
         for _ in range(C2_REPS):
             torch.cuda.synchronize()  # an idle card: the events bracket the kernel alone
             fns["fused"]()
         torch.cuda.synchronize()
-    finally:
-        _build.LAUNCH_EVENTS = None
+    events = tracing.snapshot().device_events
     own = [s.elapsed_time(e) for name, s, e in events if "fused" in name]
     print(f"[config2 fused] B2's own device time {statistics.median(own):.4f} ms a call (median of "
           f"{len(own)} launches, events around the launch; all {[round(t, 4) for t in own]}); "
@@ -3268,7 +3282,8 @@ _INSTALLED_RUN = r"""
 import json, os, sys, time
 import torch
 import lexls_tpu_torch as lt
-from lexls_tpu_torch.ops import _build, fused_active_set, panel_factorize
+from lexls_tpu_torch import tracing
+from lexls_tpu_torch.ops import _build
 
 tmp = sys.argv[1]
 d = torch.load(os.path.join(tmp, "inputs.pt"))
@@ -3279,16 +3294,17 @@ dev = torch.device("cuda", 0)
 A, lb, ub, reg = (d[k].to(dev) for k in ("A", "lb", "ub", "reg"))
 struct = lt.Structure(dims=tuple(d["dims"]), n_var=int(d["n_var"]))
 params = lt.ParametersLexLSI(**d["params"])
-panel_factorize.launches = fused_active_set.launches = 0
-torch.cuda.synchronize()
-x, v, status = lt.solve_sequence_batched_fused(A, lb, ub, reg, struct=struct,
-                                               params=params)[:3]
-torch.cuda.synchronize()
+with tracing.recording():
+    torch.cuda.synchronize()
+    x, v, status = lt.solve_sequence_batched_fused(A, lb, ub, reg, struct=struct,
+                                                   params=params)[:3]
+    torch.cuda.synchronize()
+counters = tracing.snapshot().counters
 torch.save({"x": x.cpu(), "status": status.cpu()}, os.path.join(tmp, "out.pt"))
 print(json.dumps(dict(
     file=lt.__file__, csrc=str(_build.CSRC), library=str(info.path), nvcc_s=info.seconds, build_s=build_s,
-    launches={"panel_factorize": panel_factorize.launches,
-              "fused_active_set": fused_active_set.launches},
+    launches={k: sum(v for name, v in counters.items() if name.startswith(f"launches.lexls_{k}_"))
+              for k in ("panel_factorize", "fused_active_set")},
     jax_package=sorted(m for m in sys.modules if m.split(".")[0] == "lexls_tpu"))))
 """
 

@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+from .. import tracing
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
 
@@ -118,13 +120,6 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-# A measurement sets this to a list: every launch then appends (entry name,
-# start event, end event), recorded on the current stream right around the
-# C entry, so that a kernel's own device time can be told from whatever else
-# its wrapper does.  None (the default) costs a launch one comparison.
-LAUNCH_EVENTS = None
-
-
 def current_stream(device) -> int:
     """The raw handle of torch's current CUDA stream on ``device`` (through
     torch's own fast accessor where this torch has it: a launch's host time
@@ -137,17 +132,20 @@ def current_stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch(fn, name: str, *args) -> None:
+def launch(fn, name: str, args) -> None:
     """Call the bound C entry ``fn`` (which launches its kernel on the
-    stream it is given), raise if the launch was refused."""
-    if LAUNCH_EVENTS is None:
-        check(fn(*args), name)
+    stream it is given) with the arguments that ``args()`` builds, raise if
+    the launch was refused.  With tracing on (:mod:`lexls_tpu_torch.tracing`)
+    building the arguments (pointers, ctypes arrays) and the call are the
+    span ``lexls.launch`` and count in ``launches.<name>``; under
+    ``recording(device_events=True)`` CUDA events bracket the call too, which
+    time the kernel alone on the card."""
+    if not tracing.enabled():
+        check(fn(*args()), name)
         return
-    import torch
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    err = fn(*args)
-    end.record()
-    check(err, name)
-    LAUNCH_EVENTS.append((name, start, end))
+    with tracing.span("lexls.launch"):
+        tracing.count(f"launches.{name}")
+        argv = args()
+        with tracing.device_interval(name):
+            err = fn(*argv)
+        check(err, name)

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from ..lexlsi import (
     _check_blocking,
     _cycling_step,
@@ -474,6 +475,13 @@ def fused_occupancy(lay: SharedLayout, dtype) -> int:
     return got
 
 
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(lay: SharedLayout, dtype) -> int:
+    """:func:`fused_occupancy`, asked of the card once per layout and dtype:
+    the gauge ``b2.blocks_per_sm`` of a traced launch."""
+    return fused_occupancy(lay, dtype)
+
+
 @functools.lru_cache(maxsize=64)
 def _level_table(dims: tuple, device: torch.device) -> torch.Tensor:
     """(2, p) int32 on ``device``: level sizes and first rows, made once
@@ -526,7 +534,9 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
     wrapper, and the result's ``lb``/``ub`` are the inputs themselves
     unless cycling handling is on.  ``lod_shared`` forces the kernel's
     layout (:func:`fused_layout`) for measurements; a launch that the card
-    refuses raises.
+    refuses raises.  With tracing on, a launch sets the gauge
+    ``b2.blocks_per_sm``, the resident blocks per SM that the card reports
+    at its layout (:mod:`lexls_tpu_torch.tracing`).
     """
     kw = dict(dims=dims, prio=prio, elig=elig, tol_ld=tol_ld, tol_feas=tol_feas,
               tol_wrong=tol_wrong, tol_correct=tol_correct, max_fact=max_fact,
@@ -588,18 +598,16 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
     ins = (A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, it0,
            *(log_in or (None,) * 8), *(cyc_in or (None,) * 4), lvl, prio, elig, vidx)
     name, fn = _fused_entry(dtype)
-    _build.launch(fn, name, *_entry_args(
+    if tracing.enabled():
+        tracing.gauge("b2.blocks_per_sm", _blocks_per_sm(lay, dtype))
+    _build.launch(fn, name, lambda: _entry_args(
         [None if t is None else t.data_ptr() for t in ins],
         [None if t is None else t.data_ptr() for t in outs], lay,
         dict(B=B, m=m, n=n, p=p, d0=d0, kmax=kmax, max_fact=int(max_fact),
              deact_first=int(bool(deact_first)), iter_cap=int(iter_cap), log_cap=int(log_cap),
              cycling=int(bool(cycling)), cyc_max=int(cyc_max)),
         (tol_ld, tol_feas, tol_wrong, tol_correct, cyc_relax), _build.current_stream(dev)))
-    fused_active_set.launches += 1
     lb_o, ub_o = bounds_o or (lb, ub)
     return ActiveSetResult(x_o, v_o, dx_o, dv_o, Ax_o, Adx_o, ct_o, st_o, ns_o, it_o, na_o, nd_o,
                            nf_o, status_o, rpad, posf, ranks, lb_o, ub_o, lobj_o, lctr_o, ltyp_o,
                            lval_o, lrank_o, lcyc_o, llen_o, lovf_o, *cyc_o)
-
-
-fused_active_set.launches = 0

@@ -282,14 +282,10 @@ def panel_factorize(block, pos, col_at, col_index, rank_row, *, fr: int, tol: fl
     outs = (torch.empty_like(block), pos_o, col_at_o, torch.empty_like(col_index), rank_row_o)
     hh = torch.empty(B, dim, dtype=block.dtype, device=block.device)
     name, fn = _panel_entry(block.dtype)
-    _build.launch(fn, name, *(t.data_ptr() for t in ins + outs), hh.data_ptr(),
-                  _int_array(lay.offsets), B, dim, n, fr, int(lay.in_shared), lay.ld, lay.nbytes,
-                  0, tol, _build.current_stream(block.device))
-    panel_factorize.launches += 1
+    _build.launch(fn, name, lambda: (
+        *(t.data_ptr() for t in ins + outs), hh.data_ptr(), _int_array(lay.offsets), B, dim, n,
+        fr, int(lay.in_shared), lay.ld, lay.nbytes, 0, tol, _build.current_stream(block.device)))
     return (*outs, hh)
-
-
-panel_factorize.launches = 0
 
 
 # ---------------------------------------------------------------------------

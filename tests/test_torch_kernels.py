@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import lexls_tpu_torch as lt
-from lexls_tpu_torch import convert
+from lexls_tpu_torch import convert, tracing
 from lexls_tpu_torch.lexlsi import _initial_state, active_set_kwargs
 from lexls_tpu_torch.oracle import random_inequality_hierarchy
 from lexls_tpu_torch.ops import (
@@ -74,16 +74,31 @@ def _fused_problem(device, dtype, B=32, seed=17, simple=False, **options):
     return args, active_set_kwargs(struct, params, device)
 
 
+def _launches(fn):
+    """``fn()``, and the launches of each kernel it made
+    (``{"panel_factorize": n, "fused_active_set": n}``, read from the
+    port's tracing counters ``launches.<C entry>``)."""
+    tracing.reset()
+    with tracing.recording():
+        out = fn()
+    counters = tracing.snapshot().counters
+    return out, {k: sum(v for name, v in counters.items()
+                        if name.startswith(f"launches.lexls_{k}_"))
+                 for k in ("panel_factorize", "fused_active_set")}
+
+
 def test_cpu_tensors_take_the_plain_versions():
-    before = panel_factorize.launches, fused_active_set.launches
-    args = _panel_args("cpu", torch.float64)
-    for g, w in zip(panel_factorize(*args, fr=0, tol=1e-7),
-                    panel_factorize_ref(*args, fr=0, tol=1e-7)):
-        assert torch.equal(g, w)
-    fargs, kw = _fused_problem("cpu", torch.float64, B=4)
-    for g, w in zip(fused_active_set(*fargs, **kw), fused_active_set_ref(*fargs, **kw)):
-        assert torch.equal(g, w)
-    assert (panel_factorize.launches, fused_active_set.launches) == before
+    def run():
+        args = _panel_args("cpu", torch.float64)
+        for g, w in zip(panel_factorize(*args, fr=0, tol=1e-7),
+                        panel_factorize_ref(*args, fr=0, tol=1e-7)):
+            assert torch.equal(g, w)
+        fargs, kw = _fused_problem("cpu", torch.float64, B=4)
+        for g, w in zip(fused_active_set(*fargs, **kw), fused_active_set_ref(*fargs, **kw)):
+            assert torch.equal(g, w)
+
+    _, launches = _launches(run)
+    assert launches == {"panel_factorize": 0, "fused_active_set": 0}
 
 
 def test_other_devices_raise():
@@ -99,11 +114,10 @@ def test_other_devices_raise():
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_panel_kernel_matches_plain(cuda_device, dtype):  # noqa: F811
     args = _panel_args(cuda_device, dtype)
-    before = panel_factorize.launches
-    got = panel_factorize(*args, fr=0, tol=1e-7)
+    got, launches = _launches(lambda: panel_factorize(*args, fr=0, tol=1e-7))
     want = panel_factorize_ref(*args, fr=0, tol=1e-7)
     torch.cuda.synchronize()
-    assert panel_factorize.launches == before + 1
+    assert launches == {"panel_factorize": 1, "fused_active_set": 0}
     assert int(got[3][0]) == 4 and int(got[3][1]) == 0
     same = (got[1] == want[1]).all(1) & (got[3] == want[3])
     if dtype == torch.float64:
@@ -117,11 +131,10 @@ def test_panel_kernel_matches_plain(cuda_device, dtype):  # noqa: F811
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_fused_kernel_matches_plain(cuda_device, dtype):  # noqa: F811
     args, kw = _fused_problem(cuda_device, dtype)
-    before = fused_active_set.launches
-    got = fused_active_set(*args, **kw)
+    got, launches = _launches(lambda: fused_active_set(*args, **kw))
     want = fused_active_set_ref(*args, **kw)
     torch.cuda.synchronize()
-    assert fused_active_set.launches == before + 1
+    assert launches == {"panel_factorize": 0, "fused_active_set": 1}
     assert bool((got.status == 0).all()) and bool((want.status == 0).all())
     same = (got.ctr_type == want.ctr_type).all(1)
     if dtype == torch.float64:
@@ -304,10 +317,9 @@ def test_solve_core_batched_on_the_card_matches_the_cpu(cuda_device, simple):  #
             *lt.batched_initial_arrays(prob, B, device), None, struct=struct, params=params,
             x_guess_specified=False, v0_specified=False)
 
-    panel_factorize.launches = 0
-    got = run(cuda_device)
+    got, launches = _launches(lambda: run(cuda_device))
     p = len(struct.lexlse_dims)
-    assert panel_factorize.launches == p * (int(got.it.max()) + 1)
+    assert launches["panel_factorize"] == p * (int(got.it.max()) + 1)
     want = run("cpu")
     assert bool((got.status == 0).all()) and int(got.n_deact.sum()) > 0
     for f, w in convert.state_to_numpy(want).items():
@@ -340,9 +352,8 @@ def test_tracked_sequence_on_the_card_matches_the_cpu(cuda_device):  # noqa: F81
         return lt.solve_sequence_batched_fused(*t, struct=struct, params=params, tracked=True,
                                                loop_cap=1)
 
-    fused_active_set.launches = 0
-    got = run(cuda_device)
-    assert fused_active_set.launches >= 1  # the cold bootstrap always launches B2
+    got, launches = _launches(lambda: run(cuda_device))
+    assert launches["fused_active_set"] >= 1  # the cold bootstrap always launches B2
     want = run("cpu")
     assert bool((got[2] == 0).all())
     for g, w in zip(got, want):
@@ -369,9 +380,8 @@ def test_sequence_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
              for a in (A_seq, lb_seq, ub_seq, prob.regularization)]
         return lt.solve_sequence_batched_fused(*t, struct=struct, params=params)
 
-    panel_factorize.launches = fused_active_set.launches = 0
-    got = run(cuda_device)
-    assert panel_factorize.launches == len(prob.dims) and fused_active_set.launches == T
+    got, launches = _launches(lambda: run(cuda_device))
+    assert launches == {"panel_factorize": len(prob.dims), "fused_active_set": T}
     want = run("cpu")
     for g, w in zip(got, want):
         if g.dtype.is_floating_point:
