@@ -23,7 +23,13 @@ Phases:
      with them off; timed with the log on and with both on beside the
      times with them off, with the kernel's own device time and what else
      the wrapper launches (nothing), and with the LOD in shared and in
-     device memory in turns;
+     device memory in turns; then phase 1's kernels (``csrc/phase1.cu``,
+     the activation and the hot start) on a warm step at B=384 and
+     B=10,240 against their plain versions, each kernel's own device time
+     beside its bound, the plain version's device time and both host
+     issue times (``python3 chip_smoke.py phase1`` runs this alone); every
+     later phase also checks phase 1's launches: one activation a step,
+     one hot start a warm step or a fixture with x0;
   5. kernel B2 with simple bounds (``d0 > 0``) against its plain version at
      the ``test_01`` shape (n=88, 60 bound rows, general levels of 33, 3, 2
      and 97 rows), then the tracked path over that shape against the fused
@@ -175,6 +181,8 @@ GOLDEN_TRACE_B, GOLDEN_TRACE_BUDGET = 64, 40
 # takes the first three levels (50 free variables) on a few instances
 EQ_TOL, EQ_REPS = 1e-7, 20
 EQ_LN_LEVELS, EQ_LN_B = 3, 8
+# phase 1's kernels are timed at the bench batch and at the cold cell's
+PHASE1_B_LARGE = 10240
 
 
 def _card():
@@ -183,7 +191,7 @@ def _card():
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-KERNELS = ("panel_factorize", "fused_active_set")
+KERNELS = ("panel_factorize", "fused_active_set", "activation", "phase1_warm")
 
 
 def _launch_counts():
@@ -566,6 +574,97 @@ def print_layouts():
                   f"{'shared' if lay.in_shared else 'device'} memory, {lay.nbytes} bytes of "
                   f"shared memory a block; blocks per SM {lay.blocks_per_sm} by the bytes, "
                   f"{panel_occupancy(lay, dtype)} as the card reports")
+
+
+def check_phase1(dev, report):
+    """Phase 1's kernels (``csrc/phase1.cu``) on a warm step of the bench
+    problem, float32, at B=384 and B=10,240: the activation from the cold
+    working set, and the hot start from the cold answer.  Each against its
+    plain version on the same CUDA tensors (the activation equal; of the hot
+    start's fields Ax, v and dv to 1e-6 of sum |A x|, every other one equal,
+    and v, Adx and dv equal to the plain formulas on its own Ax), then timed:
+    the kernel's own device time (CUDA events around its launch, under
+    ``tracing.recording(device_events=True)``) beside its bound (every
+    input and output once over 3.35 TB/s, or its operations over 67
+    TFLOP/s) and the plain version's device time (CUDA events around the
+    call), and the host's time to issue each (perf_counter, no synchronize;
+    the median of 50 calls)."""
+    from lexls_tpu_torch import Structure, solve_core_fused
+    from lexls_tpu_torch.lexlsi import _form_step, _initialize_v0
+    from lexls_tpu_torch.ops import activation, activation_ref, phase1_warm, phase1_warm_ref
+
+    def issue_us(fn, calls=50):
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    for Bn in (B, PHASE1_B_LARGE):
+        prob, params, base, drifts, lb, ub = _bench_problem(torch.float32, dev, Bn)
+        struct = Structure.of(prob)
+        m, n = prob.n_ctr, prob.n_var
+        A0, A1 = ((base + drifts[k]).contiguous() for k in (0, 1))
+        lbs, ubs = lb.expand(Bn, m).contiguous(), ub.expand(Bn, m).contiguous()
+        zi = torch.zeros(Bn, m, dtype=torch.int32, device=dev)
+        zx, zv = (torch.zeros(Bn, k, dtype=torch.float32, device=dev) for k in (n, m))
+        cold = solve_core_fused(A0, lbs, ubs, *activation(A0, lbs, ubs, zi, struct.d0), zx, zv,
+                                None, struct=struct, params=params, x_guess_specified=False,
+                                v0_specified=False)
+        act_args = (A1, lbs, ubs, cold.ctr_type, struct.d0)
+        c, s, ns = activation(*act_args)
+        want = activation_ref(*act_args)
+        warm_args = (A1, lbs, ubs, c, s, ns, cold.x, zv)
+        kw = dict(struct=struct, params=params, v0_specified=False)
+        got_w, want_w = phase1_warm(*warm_args, **kw), phase1_warm_ref(*warm_args, **kw)
+        # Ax, and v and dv from it, within 1e-6 of sum |A x| (another summation order);
+        # v, Adx and dv equal to the plain formulas on the kernel's own Ax and working set;
+        # every other field equal to the plain version's
+        scale = (A1.abs() @ got_w.x.abs()[:, :, None])[..., 0].clamp_min(1e-30)
+        err = {f: float(((getattr(got_w, f) - getattr(want_w, f)).abs() / scale).max())
+               for f in ("Ax", "v", "dv")}
+        own_Adx, own_dv = _form_step(A1, lbs, ubs, got_w.ctr_type, got_w.Ax, got_w.v, got_w.dx)
+        own = {"v": _initialize_v0(got_w.ctr_type, got_w.Ax, lbs, ubs, params), "Adx": own_Adx,
+               "dv": own_dv}
+        differ = [f"activation {k}" for k, g, w in zip(("ctr_type", "stamp", "next_stamp"),
+                                                       (c, s, ns), want) if not torch.equal(g, w)]
+        differ += [f for f in got_w._fields
+                   if f not in err and not torch.equal(getattr(got_w, f), getattr(want_w, f))]
+        differ += [f"{f} on its own Ax" for f, w in own.items()
+                   if not torch.equal(getattr(got_w, f), w)]
+        print(f"[phase1 B={Bn}] against the plain versions: the activation's fields and the hot "
+              f"start's {len(got_w._fields) - len(err)} exact fields equal, and v, Adx and dv "
+              f"on its own Ax: {not differ} {differ}; max |err| / sum |A x|: "
+              + ", ".join(f"{f} {e:.3e}" for f, e in err.items()) + " (bound 1e-6)")
+        if differ or max(err.values()) > 1e-6:
+            raise SystemExit(f"phase 1's kernels disagree with their plain versions at B={Bn}")
+        es, bm = 4, Bn * m
+        a_bytes = A1.numel() * es
+        nbytes = {"activation": a_bytes + 2 * bm * es + 3 * bm * 4 + Bn * 4,
+                  "phase1_warm": a_bytes + 2 * bm * es + 2 * Bn * n * es + 2 * bm * 4 + Bn * 4
+                  + 4 * bm * es + 2 * bm * 4 + 5 * Bn * 4 + Bn}
+        flops = {"activation": 2 * bm * n, "phase1_warm": 2 * bm * n + 12 * bm}
+        for key, kernel, fn, ref in (
+                ("activation", "activation_kernel", lambda: activation(*act_args),
+                 lambda: activation_ref(*act_args)),
+                ("phase1_warm", "warm_kernel", lambda: phase1_warm(*warm_args, **kw),
+                 lambda: phase1_warm_ref(*warm_args, **kw))):
+            own, others = _own_device_time(f"[phase1 {key} B={Bn}]", kernel, fn, 20)
+            plain = _cuda_ms(ref, 20)
+            bound_ms, by = _bound(nbytes[key], flops[key])
+            host, host_plain = issue_us(fn), issue_us(ref)
+            print(f"[phase1 {key} B={Bn}] own {own:.4f} ms against a bound of {bound_ms:.4f} ms "
+                  f"by {by} ({nbytes[key] / 1e6:.2f} MB, {flops[key] / 1e6:.2f} MFLOP; "
+                  f"{100 * bound_ms / own:.1f}% of its roofline); the plain version "
+                  f"{plain:.4f} ms on the card; host issue {host:.1f} us, the plain version's "
+                  f"{host_plain:.1f} us")
+            if others:
+                raise SystemExit(f"phase1 {key}: the wrapper launches {others:g} other kernels")
+            report[key].setdefault("card_ms", {})[f"B{Bn}"] = round(own, 5)
+            report[key].setdefault("plain_ms", {})[f"B{Bn}"] = round(plain, 5)
+            report[key].setdefault("bound_ms", {})[f"B{Bn}"] = round(bound_ms, 5)
 
 
 def check_fused(dev, report):
@@ -1210,6 +1309,9 @@ def run_main_paths(dev, report):
         for k, c in launches.items():
             if c == 0:
                 raise SystemExit(f"{label} did not launch {k}")
+        if (launches["activation"], launches["phase1_warm"]) != (T_MAX, T_MAX - 1):
+            raise SystemExit(f"{label}: phase 1 is one activation a step and one hot start a "
+                             f"warm step, {T_MAX} and {T_MAX - 1}")
         if x.shape != (B, T_MAX, N_VAR) or not bool(torch.isfinite(x).all()) \
                 or not bool(torch.isfinite(v).all()):
             raise SystemExit(f"{label}: x/v not finite or of the wrong shape")
@@ -1326,6 +1428,9 @@ def run_new_paths(dev, report):
         if x.shape != (B, T, N_VAR) or not bool(torch.isfinite(x).all()) \
                 or not bool(torch.isfinite(v).all()) or not bool((status == 0).all()):
             raise SystemExit(f"{label}: not every solve is PROBLEM_SOLVED, finite and in shape")
+        if (launches["activation"], launches["phase1_warm"]) != (T, T - 1):
+            raise SystemExit(f"{label}: phase 1 is one activation a step and one hot start a "
+                             f"warm step, {T} and {T - 1}: {launches}")
         for k in report:
             report[k]["launches_by_path"][key] = launches[k]
         return out, launches
@@ -1822,6 +1927,10 @@ def _golden(dev, report):
           f"{'yes' if not b1_short else b1_short})")
     if b1_short or launches["panel_factorize"] == 0 or launches["fused_active_set"] != 0:
         misses.append(f"exact: B1 launched fewer than levels x passes on {b1_short}, or B2 ran")
+    warm_fixtures = sum(kw.get("x0") is not None for _, _, kw, _, _ in cases)
+    if (launches["activation"], launches["phase1_warm"]) != (0, warm_fixtures):
+        misses.append(f"exact: the hot start is one launch a fixture with x0 ({warm_fixtures}) "
+                      f"and the activation none: {launches}")
     t_cpu = time.perf_counter()
     differ = []
     for name, prob, kw, gold, regularized in cases:
@@ -1867,6 +1976,10 @@ def _golden(dev, report):
         print(f"[golden {tag}] largest |dnorm| / bound {worst:.3f}")
         if launches["fused_active_set"] == 0:
             misses.append(f"{key}: B2 was not launched")
+        warm_fixtures = sum(kw.get("x0") is not None for _, _, kw, _, _ in plain)
+        if (launches["activation"], launches["phase1_warm"]) != (0, warm_fixtures):
+            misses.append(f"{key}: the hot start is one launch a fixture with x0 "
+                          f"({warm_fixtures}) and the activation none: {launches}")
 
     # B2 against its plain version, float64, from the same phase-1 state
     params64 = ParametersLexLSI()
@@ -2757,7 +2870,7 @@ def slab_config5(dev, report, most, typical):
             name = f"loop_cap=1, handover_slab={S}"
             opts[name] = dict(loop_cap=1, handover_slab=S)
         st, car, stats, ms, steps = st0, car0, [], [], []
-        launches = {"panel_factorize": 0, "fused_active_set": 0}
+        launches = dict.fromkeys(KERNELS, 0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_mib = torch.cuda.memory_allocated() / 2**20
@@ -3304,7 +3417,7 @@ torch.save({"x": x.cpu(), "status": status.cpu()}, os.path.join(tmp, "out.pt"))
 print(json.dumps(dict(
     file=lt.__file__, csrc=str(_build.CSRC), library=str(info.path), nvcc_s=info.seconds, build_s=build_s,
     launches={k: sum(v for name, v in counters.items() if name.startswith(f"launches.lexls_{k}_"))
-              for k in ("panel_factorize", "fused_active_set")},
+              for k in ("panel_factorize", "fused_active_set", "activation", "phase1_warm")},
     jax_package=sorted(m for m in sys.modules if m.split(".")[0] == "lexls_tpu"))))
 """
 
@@ -3476,11 +3589,17 @@ def main():
         "fused_active_set": dict(name="fused_active_set", route="cuda",
                                  source="lexls_tpu_torch/csrc/fused.cu",
                                  replaces="lexls_tpu/ops/fused.py:966", library_ms=None),
+        "activation": dict(name="activation", route="cuda", source="lexls_tpu_torch/csrc/phase1.cu",
+                           replaces=None, library_ms=None),
+        "phase1_warm": dict(name="phase1_warm", route="cuda",
+                            source="lexls_tpu_torch/csrc/phase1.cu", replaces=None,
+                            library_ms=None),
     }
     phases = {
         "layouts": print_layouts,
         "panel": lambda: check_panel(dev, report),
         "fused": lambda: check_fused(dev, report),
+        "phase1": lambda: check_phase1(dev, report),
         "simple_bounds": lambda: check_simple_bounds(dev),
         "tracked_simple_bounds": lambda: check_tracked_simple_bounds(dev),
         "exact_tier": lambda: check_exact_tier(dev),

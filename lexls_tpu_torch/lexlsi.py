@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -312,20 +312,70 @@ def _initialize_v0(ctr_type, Ax, lb, ub, params: ParametersLexLSI):
     return v
 
 
+class Phase1Result(NamedTuple):
+    """What phase 1 sets of a solver state (``LexLSIState``'s fields of the
+    same names): floats (B, n) or (B, m), ints int32 (B, m) or (B,),
+    ``log_overflow`` bool (B,).  Fields of equal value may be one tensor."""
+
+    x: torch.Tensor
+    v: torch.Tensor
+    dx: torch.Tensor
+    dv: torch.Tensor
+    Ax: torch.Tensor
+    Adx: torch.Tensor
+    ctr_type: torch.Tensor
+    stamp: torch.Tensor
+    next_stamp: torch.Tensor
+    it: torch.Tensor
+    n_act: torch.Tensor
+    n_deact: torch.Tensor
+    n_fact: torch.Tensor
+    status: torch.Tensor
+    cyc_counter: torch.Tensor
+    cyc_prev_op: torch.Tensor
+    cyc_prev_row: torch.Tensor
+    cyc_prev_type: torch.Tensor
+    log_len: torch.Tensor
+    log_overflow: torch.Tensor
+
+
+def _phase1_result(A, lb, ub, ctr_type, stamp, next_stamp, x, Ax, v, params: ParametersLexLSI,
+                   n_fact: int) -> Phase1Result:
+    """The end of phase 1 from x, its A x and the working set: v0 unless
+    ``v`` is given, the step at dx = 0, and a state's counters before its
+    first iteration (zero, ``n_fact`` factorizations counted, status
+    UNKNOWN, the cycling detector's initial values, an empty log that has
+    dropped nothing)."""
+    B, _, n = A.shape
+    dev = A.device
+    if v is None:
+        v = _initialize_v0(ctr_type, Ax, lb, ub, params)
+    # dx of iteration 0 is recomputed by the loop body itself
+    dx = torch.zeros(B, n, dtype=A.dtype, device=dev)
+    Adx, dv = _form_step(A, lb, ub, ctr_type, Ax, v, dx)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    return Phase1Result(
+        x, v, dx, dv, Ax, Adx, ctr_type, stamp, next_stamp, zero, zero, zero, zero + n_fact,
+        torch.full((B,), int(TerminationStatus.UNKNOWN), dtype=torch.int32, device=dev),
+        *_initial_cycling(B, dev), zero, torch.zeros(B, dtype=torch.bool, device=dev))
+
+
 def _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
                    struct: Structure, params: ParametersLexLSI,
                    x_guess_specified: bool, v0_specified: bool, reg=None) -> LexLSIState:
     """Phase 1 (``lexlsi.h:816-915``): initial x (a cold factorization +
     basic solve, through kernel B1 and damped by ``reg`` under
     regularization, unless a guess is given), v, working set and step.
-    With ``use_phase1_v0`` the guess is required and counts no
-    factorization (``lexlsi.py:487-501``).  Traced as the span
-    ``lexls.phase1.warm`` with a guess, ``lexls.phase1.cold`` without one
-    (:mod:`lexls_tpu_torch.tracing`)."""
+    With a guess it is :func:`lexls_tpu_torch.ops.phase1.phase1_warm`, one
+    kernel launch on the card.  With ``use_phase1_v0`` the guess is
+    required and counts no factorization (``lexlsi.py:487-501``).  Traced
+    as the span ``lexls.phase1.warm`` with a guess, ``lexls.phase1.cold``
+    without one (:mod:`lexls_tpu_torch.tracing`)."""
+    from .ops.phase1 import phase1_warm
+
     with tracing.span("lexls.phase1.warm" if x_guess_specified else "lexls.phase1.cold"):
         B, m, n = A.shape
         dev = A.device
-        ctr_type, stamp, next_stamp = ctr_type0, stamp0, next_stamp0
         # hot_start_related_tests (lexlsi.h:758-793): v0 needs x_guess
         if v0_specified and not x_guess_specified:
             v0_specified = False
@@ -333,46 +383,38 @@ def _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0,
             raise LexLSError("when use_phase1_v0 = true, x_guess has to be specified")
 
         if x_guess_specified:
-            x = x0
+            p1 = phase1_warm(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, struct=struct,
+                             params=params, v0_specified=v0_specified)
         else:
-            Ag, bg, fixed_mask, fixed_val = _masked_general(A, lb, ub, ctr_type, struct)
+            Ag, bg, fixed_mask, fixed_val = _masked_general(A, lb, ub, ctr_type0, struct)
             x = lexlse.solve(_factorize_masked(Ag, bg, fixed_mask, fixed_val, struct, params, reg))
-        Ax = _matvec(A, x)
-        if v0_specified:
-            v = v0
-        else:
-            if x_guess_specified:
-                ctr_type, stamp, next_stamp = _form_initial_working_set(
-                    ctr_type, stamp, next_stamp, Ax, lb, ub, params)
-                if struct.simple_bounds and params.modify_x_guess_enabled:
-                    x = _modify_x_guess(x, ctr_type, lb, ub, struct)
-                    Ax = _matvec(A, x)
-            v = _initialize_v0(ctr_type, Ax, lb, ub, params)
-        # dx of iteration 0 is recomputed by the loop body itself
-        dx = torch.zeros(B, n, dtype=A.dtype, device=dev)
-        Adx, dv = _form_step(A, lb, ub, ctr_type, Ax, v, dx)
-        i32 = dict(dtype=torch.int32, device=dev)
-        zero = torch.zeros(B, **i32)
+            p1 = _phase1_result(A, lb, ub, ctr_type0, stamp0, next_stamp0, x, _matvec(A, x),
+                                None, params, n_fact=1)
         cap = params.max_number_of_factorizations + 2 if params.log_working_set_enabled else 0
         tcap = params.max_number_of_factorizations + 2 if params.trace_enabled else 0
-        log_int = torch.zeros(B, cap, **i32)
+        i32 = dict(dtype=torch.int32, device=dev)
         fl = dict(dtype=A.dtype, device=dev)
+        b8 = dict(dtype=torch.bool, device=dev)
+        # zero-capacity arrays hold nothing to fill: one empty tensor per shape
+        ei, ef = torch.empty(B, 0, **i32), torch.empty(B, 0, **fl)
+        log_int = torch.zeros(B, cap, **i32) if cap else ei
+        log_value = torch.zeros(B, cap, **fl) if cap else ef
+        log_cycling = torch.zeros(B, cap, **b8) if cap else torch.empty(B, 0, **b8)
+        if tcap:
+            trace = dict(trace_x=torch.zeros(B, tcap, n, **fl),
+                         trace_v=torch.zeros(B, tcap, m, **fl),
+                         trace_dx=torch.zeros(B, tcap, n, **fl),
+                         trace_dv=torch.zeros(B, tcap, m, **fl),
+                         trace_alpha=torch.zeros(B, tcap, **fl),
+                         trace_op=torch.zeros(B, tcap, **i32),
+                         trace_row=torch.full((B, tcap), -1, **i32))
+        else:
+            tn, tm = torch.empty(B, 0, n, **fl), torch.empty(B, 0, m, **fl)
+            trace = dict(trace_x=tn, trace_v=tm, trace_dx=tn, trace_dv=tm, trace_alpha=ef,
+                         trace_op=ei, trace_row=ei)
         return LexLSIState(
-            x=x, v=v, dx=dx, dv=dv, Ax=Ax, Adx=Adx,
-            ctr_type=ctr_type, stamp=stamp, next_stamp=next_stamp, lb=lb, ub=ub,
-            it=zero, n_act=zero, n_deact=zero, n_fact=zero + int(not params.use_phase1_v0),
-            status=torch.full((B,), int(TerminationStatus.UNKNOWN), **i32),
-            **dict(zip(("cyc_counter", "cyc_prev_op", "cyc_prev_row", "cyc_prev_type"),
-                       _initial_cycling(B, dev))),
-            log_obj=log_int, log_ctr=log_int, log_type=log_int,
-            log_value=torch.zeros(B, cap, dtype=A.dtype, device=dev), log_rank=log_int,
-            log_cycling=torch.zeros(B, cap, dtype=torch.bool, device=dev), log_len=zero,
-            log_overflow=torch.zeros(B, dtype=torch.bool, device=dev),
-            trace_x=torch.zeros(B, tcap, n, **fl), trace_v=torch.zeros(B, tcap, m, **fl),
-            trace_dx=torch.zeros(B, tcap, n, **fl), trace_dv=torch.zeros(B, tcap, m, **fl),
-            trace_alpha=torch.zeros(B, tcap, **fl), trace_op=torch.zeros(B, tcap, **i32),
-            trace_row=torch.full((B, tcap), -1, **i32),
-        )
+            **p1._asdict(), lb=lb, ub=ub, log_obj=log_int, log_ctr=log_int, log_type=log_int,
+            log_value=log_value, log_rank=log_int, log_cycling=log_cycling, **trace)
 
 
 # ---------------------------------------------------------------------------

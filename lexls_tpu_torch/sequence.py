@@ -22,34 +22,20 @@ import torch
 
 from . import tracing
 from .lexlsi import Structure, full_fp32, host_tensor, solve_core_batched, solve_core_fused
+from .ops.phase1 import activation
 from .parallel.batch import make_sharded_sequence_solver  # noqa: F401  (JAX's home of it)
-from .types import CtrType, ParametersLexLSI
+from .types import ParametersLexLSI
 
 
 def _device_initial_activation(A, lb, ub, guess_type, struct: Structure):
     """Batched initial (ctr_type, stamp, next_stamp) (``sequence.py:25-50``):
     equality rows (lb == ub, nonzero normal; simple-bounds rows always)
     auto-activate first in row order, then the LB/UB guess rows in row
-    order.  Traced as the span ``lexls.activation``
+    order.  :func:`lexls_tpu_torch.ops.phase1.activation`, one kernel
+    launch on the card.  Traced as the span ``lexls.activation``
     (:mod:`lexls_tpu_torch.tracing`)."""
     with tracing.span("lexls.activation"):
-        B, m, _ = A.shape
-        eq = (lb - ub).abs() < 1e-15
-        nonzero = (A * A).sum(2) > 0
-        is_bound_row = torch.zeros(m, dtype=torch.bool, device=A.device)
-        is_bound_row[: struct.d0] = struct.simple_bounds
-        eq = eq & (nonzero | is_bound_row)
-
-        guess_ok = (guess_type == int(CtrType.ACTIVE_LB)) | (guess_type == int(CtrType.ACTIVE_UB))
-        ctr = torch.where(eq, int(CtrType.ACTIVE_EQ),
-                          torch.where(guess_ok, guess_type, int(CtrType.INACTIVE))).to(torch.int32)
-        n_eq = eq.sum(1, dtype=torch.int32)
-        eq_order = eq.to(torch.int32).cumsum(1, dtype=torch.int32) - 1
-        g = guess_ok & ~eq
-        g_order = g.to(torch.int32).cumsum(1, dtype=torch.int32) - 1
-        stamp = torch.where(eq, eq_order, torch.where(g, n_eq[:, None] + g_order, -1))
-        next_stamp = n_eq + g.sum(1, dtype=torch.int32)
-        return ctr, stamp.to(torch.int32), next_stamp
+        return activation(A, lb, ub, guess_type, struct.d0)
 
 
 def _sequence_tensors(A_seq, lb_seq, ub_seq, reg, device):

@@ -15,18 +15,20 @@ The spans of a warm or cold step of the whole-solve tier:
 
 ``lexls.activation``
     phase 1's batched working-set activation
-    (``sequence._device_initial_activation``), a root of its own;
+    (``sequence._device_initial_activation``, the launch of its kernel on
+    the card), a root of its own;
 ``lexls.solve_core_fused``
     the whole call of ``lexlsi.solve_core_fused``, a root;
 ``lexls.phase1.warm`` / ``lexls.phase1.cold``
     phase 1 (``lexlsi._initial_state``) with and without an x guess; the
-    cold one holds kernel B1's factorization and its launches;
+    warm one holds the hot start's launch, the cold one kernel B1's
+    factorization and its launches;
 ``lexls.b2``
     kernel B2's wrapper as ``lexlsi._fused_tail`` calls it: argument
     checks, cached tables, the layout, the outputs, the launch;
 ``lexls.launch``
-    the C entry of a kernel (B1 and B2): ctypes argument arrays, the
-    launch itself.
+    the C entry of a kernel (B1, B2 and phase 1's two): ctypes argument
+    arrays, the launch itself.
 
 Counters and gauges: ``launches.<C entry>`` counts each kernel's launches;
 the gauge ``b2.blocks_per_sm`` is the card's resident blocks per SM for

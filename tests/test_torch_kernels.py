@@ -8,9 +8,12 @@ order, another summation order) and trajectories equal with x to 1e-8
 for B2; float32 to 1e-4 / 1e-3 where the pivot orders or working sets
 agree, since float32 roundoff may flip a pivot choice between two column
 norms that tie to ~1e-6.  Over the shapes of ``_SHAPES`` and ``_PANELS``
-(large norms, long columns) B1's float64 tolerance is 1e-10.
+(large norms, long columns) B1's float64 tolerance is 1e-10.  Phase 1's
+kernels: integers and working sets exact, Ax and v to 1e-6 (float32) or
+1e-13 (float64) of sum_j |A_ij x_j| (another summation order).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -19,14 +22,25 @@ import torch
 
 import lexls_tpu_torch as lt
 from lexls_tpu_torch import convert, tracing
-from lexls_tpu_torch.lexlsi import _initial_state, active_set_kwargs
+from lexls_tpu_torch.lexlsi import (
+    _form_initial_working_set,
+    _form_step,
+    _initial_state,
+    _initialize_v0,
+    _modify_x_guess,
+    active_set_kwargs,
+)
 from lexls_tpu_torch.oracle import random_inequality_hierarchy
 from lexls_tpu_torch.ops import (
     ActiveSetResult,
+    activation,
+    activation_ref,
     fused_active_set,
     fused_active_set_ref,
     panel_factorize,
     panel_factorize_ref,
+    phase1_warm,
+    phase1_warm_ref,
 )
 from lexls_tpu_torch.sequence import _device_initial_activation
 from torch_parity import cuda_device  # noqa: F401
@@ -74,17 +88,26 @@ def _fused_problem(device, dtype, B=32, seed=17, simple=False, **options):
     return args, active_set_kwargs(struct, params, device)
 
 
+KERNELS = ("panel_factorize", "fused_active_set", "activation", "phase1_warm")
+
+
 def _launches(fn):
     """``fn()``, and the launches of each kernel it made
-    (``{"panel_factorize": n, "fused_active_set": n}``, read from the
-    port's tracing counters ``launches.<C entry>``)."""
+    (``{"panel_factorize": n, "fused_active_set": n, "activation": n,
+    "phase1_warm": n}``, read from the port's tracing counters
+    ``launches.<C entry>``)."""
     tracing.reset()
     with tracing.recording():
         out = fn()
     counters = tracing.snapshot().counters
     return out, {k: sum(v for name, v in counters.items()
                         if name.startswith(f"launches.lexls_{k}_"))
-                 for k in ("panel_factorize", "fused_active_set")}
+                 for k in KERNELS}
+
+
+def _counts(**launched):
+    """The launches of every kernel: those named, and 0 for the others."""
+    return {k: launched.get(k, 0) for k in KERNELS}
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -98,7 +121,7 @@ def test_cpu_tensors_take_the_plain_versions():
             assert torch.equal(g, w)
 
     _, launches = _launches(run)
-    assert launches == {"panel_factorize": 0, "fused_active_set": 0}
+    assert launches == _counts()
 
 
 def test_other_devices_raise():
@@ -117,7 +140,7 @@ def test_panel_kernel_matches_plain(cuda_device, dtype):  # noqa: F811
     got, launches = _launches(lambda: panel_factorize(*args, fr=0, tol=1e-7))
     want = panel_factorize_ref(*args, fr=0, tol=1e-7)
     torch.cuda.synchronize()
-    assert launches == {"panel_factorize": 1, "fused_active_set": 0}
+    assert launches == _counts(panel_factorize=1)
     assert int(got[3][0]) == 4 and int(got[3][1]) == 0
     same = (got[1] == want[1]).all(1) & (got[3] == want[3])
     if dtype == torch.float64:
@@ -134,7 +157,7 @@ def test_fused_kernel_matches_plain(cuda_device, dtype):  # noqa: F811
     got, launches = _launches(lambda: fused_active_set(*args, **kw))
     want = fused_active_set_ref(*args, **kw)
     torch.cuda.synchronize()
-    assert launches == {"panel_factorize": 0, "fused_active_set": 1}
+    assert launches == _counts(fused_active_set=1)
     assert bool((got.status == 0).all()) and bool((want.status == 0).all())
     same = (got.ctr_type == want.ctr_type).all(1)
     if dtype == torch.float64:
@@ -381,7 +404,8 @@ def test_sequence_on_the_card_matches_the_cpu(cuda_device):  # noqa: F811
         return lt.solve_sequence_batched_fused(*t, struct=struct, params=params)
 
     got, launches = _launches(lambda: run(cuda_device))
-    assert launches == {"panel_factorize": len(prob.dims), "fused_active_set": T}
+    assert launches == _counts(panel_factorize=len(prob.dims), fused_active_set=T, activation=T,
+                               phase1_warm=T - 1)
     want = run("cpu")
     for g, w in zip(got, want):
         if g.dtype.is_floating_point:
@@ -557,3 +581,216 @@ def test_kernel_wrappers_check_their_inputs(cuda_device):  # noqa: F811
     with pytest.raises(ValueError, match="contiguous"):
         panel_factorize(args[0].transpose(1, 2).contiguous().transpose(1, 2), *args[1:],
                         fr=0, tol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1 of a warm step: the activation and the hot start
+# ---------------------------------------------------------------------------
+
+# (n, level sizes, simple bounds, instances): the benchmark's ik100 shape at
+# its batch, a simple-bounds level (8 bound rows, a level wider than n), and
+# a small general shape for the CPU
+_PHASE1 = {
+    "ik100": (100, [30, 30, 30, 30], False, 384),
+    "simple_bounds": (20, [8, 6, 25, 6], True, 64),
+    "small": (20, [6, 6, 6, 6], False, 6),
+}
+# the parameters phase 1 reads: the defaults (no repair, the least initial
+# violation), and every repair on with v0 from the feasibility tolerance
+_PHASE1_OPTIONS = {
+    "defaults": {},
+    "modify": dict(modify_type_inactive_enabled=True, modify_type_active_enabled=True,
+                   modify_x_guess_enabled=True, set_min_init_ctr_violation=False),
+}
+
+
+def _phase1_inputs(device, dtype, shape, options, solved=True):
+    """A warm step's phase-1 inputs at one of ``_PHASE1``: perturbed copies
+    solved cold through the whole-solve tier (with ``solved``; else a random
+    x, v and guess), moved by 1e-3, and activated from the cold working set.
+    Returns ((A, lb, ub, ctr_type, stamp, next_stamp, x, v), the guess, the
+    structure, the parameters)."""
+    n, dims, simple, B = _PHASE1[shape]
+    rng = np.random.default_rng(43)
+    prob = random_inequality_hierarchy(rng, n, dims, equality_fraction=0.1,
+                                       tight_fraction=0.3, simple_bounds=simple)
+    struct = lt.Structure.of(prob)
+    tols = BENCH_TOLS if dtype == torch.float32 else {}
+    params = lt.ParametersLexLSI(max_number_of_factorizations=250, **tols,
+                                 **_PHASE1_OPTIONS[options])
+    t = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)  # noqa: E731
+    m = prob.n_ctr
+    noise = 1e-2 * rng.standard_normal((B,) + prob.A.shape)
+    drift = 1e-3 * rng.standard_normal((B,) + prob.A.shape)
+    noise[:, :struct.d0] = drift[:, :struct.d0] = 0.0  # bound rows stay unit rows
+    A0, A1 = t(prob.A + noise), t(prob.A + noise + drift)
+    lb, ub = t(np.tile(prob.lb, (B, 1))), t(np.tile(prob.ub, (B, 1)))
+    if solved:
+        c, s, ns = _device_initial_activation(
+            A0, lb, ub, torch.zeros(B, m, dtype=torch.int32, device=device), struct)
+        cold = lt.solve_core_fused(A0, lb, ub, c, s, ns, t(np.zeros((B, n))),
+                                   t(np.zeros((B, m))), None, struct=struct, params=params,
+                                   x_guess_specified=False, v0_specified=False)
+        x, v, guess = cold.x, cold.v, cold.ctr_type
+    else:
+        x, v = t(rng.standard_normal((B, n))), t(rng.standard_normal((B, m)))
+        guess = torch.as_tensor(rng.integers(0, 4, (B, m)), dtype=torch.int32, device=device)
+    c, s, ns = _device_initial_activation(A1, lb, ub, guess, struct)
+    return (A1, lb, ub, c, s, ns, x, v), guess, struct, params
+
+
+@pytest.mark.parametrize("v0_specified", [False, True], ids=["v0", "v0_given"])
+@pytest.mark.parametrize("options", list(_PHASE1_OPTIONS))
+@pytest.mark.parametrize("shape", ["simple_bounds", "small"])
+def test_phase1_cpu_tensors_take_the_plain_versions(shape, options, v0_specified):
+    """On CPU tensors the two wrappers are their plain versions, field for
+    field, and launch nothing."""
+    args, guess, struct, params = _phase1_inputs("cpu", torch.float64, shape, options,
+                                                 solved=False)
+    kw = dict(struct=struct, params=params, v0_specified=v0_specified)
+
+    def run():
+        for g, w in zip(activation(*args[:3], guess, struct.d0),
+                        activation_ref(*args[:3], guess, struct.d0)):
+            assert torch.equal(g, w)
+        got, want = phase1_warm(*args, **kw), phase1_warm_ref(*args, **kw)
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+    _, launches = _launches(run)
+    assert launches == _counts()
+
+
+@pytest.mark.parametrize("case", ["A_2d", "lb_shape", "ub_float32", "guess_int64",
+                                  "activation_on_meta", "x_shape", "stamp_int64",
+                                  "next_stamp_shape", "v0_float32", "phase1_warm_on_meta"])
+def test_phase1_wrappers_reject_mismatched_inputs(case):
+    args, guess, struct, params = _phase1_inputs("cpu", torch.float64, "small", "defaults",
+                                                 solved=False)
+    A, lb, ub, c, s, ns, x, v = args
+    kw = dict(struct=struct, params=params, v0_specified=True)
+    calls = {
+        "A_2d": lambda: activation(A[0], lb, ub, guess, 0),
+        "lb_shape": lambda: activation(A, lb[:, 1:], ub, guess, 0),
+        "ub_float32": lambda: activation(A, lb, ub.float(), guess, 0),
+        "guess_int64": lambda: activation(A, lb, ub, guess.long(), 0),
+        "activation_on_meta": lambda: activation(*(a.to("meta") for a in (A, lb, ub, guess)), 0),
+        "x_shape": lambda: phase1_warm(A, lb, ub, c, s, ns, x[:, 1:], v, **kw),
+        "stamp_int64": lambda: phase1_warm(A, lb, ub, c, s.long(), ns, x, v, **kw),
+        "next_stamp_shape": lambda: phase1_warm(A, lb, ub, c, s, ns[:, None], x, v, **kw),
+        "v0_float32": lambda: phase1_warm(A, lb, ub, c, s, ns, x, v.float(), **kw),
+        "phase1_warm_on_meta": lambda: phase1_warm(*(a.to("meta") for a in args), **kw),
+    }
+    with pytest.raises(ValueError, match="unsupported device" if "meta" in case
+                       else "expected|must be"):
+        calls[case]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", ["ik100", "simple_bounds"])
+def test_activation_kernel_matches_plain(cuda_device, shape, dtype):  # noqa: F811
+    """The activation kernel against its plain version, bit for bit, from a
+    solved working set and from random guesses, with an equality row of a
+    zero normal (it stays out) and the bound rows' equalities (they do not)."""
+    args, guess, struct, params = _phase1_inputs(cuda_device, dtype, shape, "defaults")
+    A, lb, ub = args[0].clone(), args[1], args[2].clone()
+    g0 = struct.d0  # the first general row: an equality everywhere, of zero normal in 0
+    ub[:, :g0 + 1] = lb[:, :g0 + 1]  # and so is every bound row, of zero normal in 0
+    A[0, :g0 + 1] = 0.0
+    rng = np.random.default_rng(3)
+    random_guess = torch.as_tensor(rng.integers(0, 4, tuple(guess.shape)), dtype=torch.int32,
+                                   device=cuda_device)
+    for g in (guess, random_guess):
+        got, launches = _launches(lambda: activation(A, lb, ub, g, struct.d0))
+        want = activation_ref(A, lb, ub, g, struct.d0)
+        torch.cuda.synchronize()
+        assert launches == _counts(activation=1)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int(got[0][0, g0]) == int(lt.CtrType.INACTIVE) or int(g[0, g0]) in (1, 2)
+        assert bool((got[0][:, :g0] == int(lt.CtrType.ACTIVE_EQ)).all())
+        assert bool((got[0][1:, g0] == int(lt.CtrType.ACTIVE_EQ)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v0_specified", [False, True], ids=["v0", "v0_given"])
+@pytest.mark.parametrize("options", list(_PHASE1_OPTIONS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", ["ik100", "simple_bounds"])
+def test_phase1_warm_kernel_matches_plain(cuda_device, shape, dtype, options,
+                                          v0_specified):  # noqa: F811
+    """The hot-start kernel against its plain version.  Exact: the working
+    set against the plain repair run on the kernel's own A x (the guess's
+    x), x, v and the step against the plain formulas on the kernel's own
+    Ax and working set, x and the counters against the plain version.  Ax
+    and v against the plain version within 1e-6 (float32) or 1e-13
+    (float64) of sum_j |A_ij x_j|: the kernel sums A x in another order
+    than cuBLAS, which may also flip a repair decision of a row whose A x
+    lies within that of its bound.  No input is written."""
+    args, _, struct, params = _phase1_inputs(cuda_device, dtype, shape, options)
+    A, lb, ub, c, s, ns, x, v0 = args
+    kw = dict(struct=struct, params=params, v0_specified=v0_specified)
+    kept = [a.clone() for a in args]
+    got, launches = _launches(lambda: phase1_warm(*args, **kw))
+    want = phase1_warm_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches == _counts(phase1_warm=1)
+    for before, after in zip(kept, args):
+        assert torch.equal(before, after)
+    moves_x = struct.simple_bounds and options == "modify" and not v0_specified
+    if v0_specified:
+        assert got.ctr_type is c and got.stamp is s and got.next_stamp is ns and got.v is v0
+    else:
+        unmoved = dataclasses.replace(params, modify_x_guess_enabled=False)
+        Ax0 = phase1_warm(*args, struct=struct, params=unmoved, v0_specified=False).Ax \
+            if moves_x else got.Ax
+        for g, w in zip((got.ctr_type, got.stamp, got.next_stamp),
+                        _form_initial_working_set(c, s, ns, Ax0, lb, ub, params)):
+            assert torch.equal(g, w)
+        if options == "modify":
+            assert bool((got.ctr_type != c).any())
+        assert torch.equal(got.v, _initialize_v0(got.ctr_type, got.Ax, lb, ub, params))
+    if moves_x:
+        assert torch.equal(got.x, _modify_x_guess(x, got.ctr_type, lb, ub, struct))
+        assert not torch.equal(got.x, x)
+    else:
+        assert got.x is x
+    assert torch.equal(got.x, want.x)
+    Adx, dv = _form_step(A, lb, ub, got.ctr_type, got.Ax, got.v, want.dx)
+    assert torch.equal(got.Adx, Adx) and torch.equal(got.dv, dv)
+    assert torch.equal(got.dx, want.dx)
+    tol = (1e-6 if dtype == torch.float32 else 1e-13) * (A.abs() @ got.x.abs()[:, :, None])[..., 0]
+    assert bool(((got.Ax - want.Ax).abs() <= tol).all())
+    assert bool(((got.v - want.v).abs() <= tol).all())
+    for f in ("it", "n_act", "n_deact", "n_fact", "status", "cyc_counter", "cyc_prev_op",
+              "cyc_prev_row", "cyc_prev_type", "log_len", "log_overflow"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_warm_step_launches_each_phase1_entry_once_and_never_waits(cuda_device,
+                                                                   dtype):  # noqa: F811
+    """A warm step of the benchmark's shape, the activation then
+    ``solve_core_fused``, launches the activation, the hot start and B2 once
+    each, and makes no host synchronization (torch's sync debug mode
+    raises on one); its solves end solved."""
+    args, guess, struct, params = _phase1_inputs(cuda_device, dtype, "ik100", "defaults")
+    A, lb, ub, x, v0 = args[0], args[1], args[2], args[6], args[7]
+
+    def step(ct, x):
+        c, s, ns = _device_initial_activation(A, lb, ub, ct, struct)
+        return lt.solve_core_fused(A, lb, ub, c, s, ns, x, v0, None, struct=struct,
+                                   params=params, x_guess_specified=True, v0_specified=False)
+
+    first, _ = _launches(lambda: step(guess, x))  # builds and caches what a step reads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, launches = _launches(lambda: step(first.ctr_type, first.x))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert launches == _counts(activation=1, phase1_warm=1, fused_active_set=1)
+    assert bool((st.status == 0).all())

@@ -15,6 +15,7 @@ import torch
 
 from lexls_tpu_torch.ops import fused as fused_mod
 from lexls_tpu_torch.ops import panel_lqr as panel_mod
+from lexls_tpu_torch.ops import phase1 as phase1_mod
 from lexls_tpu_torch.ops.fused import fused_layout
 from lexls_tpu_torch.ops.panel_lqr import (SMEM_BLOCK_LIMIT, odd_stride, pack_regions,
                                            panel_layout)
@@ -180,6 +181,21 @@ def _norm(s):
 def test_fused_kernel_indexes_its_arguments_as_the_wrapper_orders_them(enum, prefix, names):
     items, count = _enum((CSRC / "fused.cu").read_text(), enum)
     assert count.startswith("kFused")
+    assert [_norm(i[len(prefix):]) for i in items] == [_norm(k) for k in names]
+
+
+@pytest.mark.parametrize("enum, prefix, count, names", [
+    ("ActivationInput", "kActIn", "kActInputs", phase1_mod.ACTIVATION_INPUTS),
+    ("ActivationOutput", "kActOut", "kActOutputs", phase1_mod.ACTIVATION_OUTPUTS),
+    ("ActivationInt", "kActInt", "kActInts", phase1_mod.ACTIVATION_INTS),
+    ("WarmInput", "kWarmIn", "kWarmInputs", phase1_mod.WARM_INPUTS),
+    ("WarmOutput", "kWarmOut", "kWarmOutputs", phase1_mod.WARM_OUTPUTS),
+    ("WarmInt", "kWarmInt", "kWarmInts", phase1_mod.WARM_INTS),
+])
+def test_phase1_kernels_index_their_arguments_as_the_wrapper_orders_them(enum, prefix, count,
+                                                                         names):
+    items, last = _enum((CSRC / "phase1.cu").read_text(), enum)
+    assert last == count
     assert [_norm(i[len(prefix):]) for i in items] == [_norm(k) for k in names]
 
 

@@ -176,15 +176,20 @@ def test_launches_the_gauge_and_device_events_on_the_card(cuda_device, dtype):  
     suffix = "f64" if dtype == torch.float64 else "f32"
     p = 3
     assert snap.counters == {f"launches.lexls_panel_factorize_{suffix}": p,
-                             f"launches.lexls_fused_active_set_{suffix}": 2}
+                             f"launches.lexls_fused_active_set_{suffix}": 2,
+                             f"launches.lexls_activation_{suffix}": 2,
+                             f"launches.lexls_phase1_warm_{suffix}": 1}
     lay = fused_layout(9, 8, p, 0, 3, dtype)
     assert snap.gauges == {"b2.blocks_per_sm": _blocks_per_sm(lay, dtype)} and \
         snap.gauges["b2.blocks_per_sm"] >= 1
-    assert [e[0] for e in snap.device_events] == [f"lexls_panel_factorize_{suffix}"] * p + [
-        f"lexls_fused_active_set_{suffix}"] * 2
+    assert [e[0] for e in snap.device_events] == (
+        [f"lexls_activation_{suffix}"] + [f"lexls_panel_factorize_{suffix}"] * p
+        + [f"lexls_fused_active_set_{suffix}", f"lexls_activation_{suffix}",
+           f"lexls_phase1_warm_{suffix}", f"lexls_fused_active_set_{suffix}"])
     assert all(s.elapsed_time(e) > 0 for _, s, e in snap.device_events)
     launches = [s for s in snap.spans if s.name == "lexls.launch"]
     by_id = {s.id: s for s in snap.spans}
-    assert len(launches) == p + 2
+    assert len(launches) == p + 5
     assert sorted(by_id[s.parent].name for s in launches) == (
-        ["lexls.b2"] * 2 + ["lexls.phase1.cold"] * p)
+        ["lexls.activation"] * 2 + ["lexls.b2"] * 2 + ["lexls.phase1.cold"] * p
+        + ["lexls.phase1.warm"])
