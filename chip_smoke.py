@@ -181,8 +181,13 @@ GOLDEN_TRACE_B, GOLDEN_TRACE_BUDGET = 64, 40
 # takes the first three levels (50 free variables) on a few instances
 EQ_TOL, EQ_REPS = 1e-7, 20
 EQ_LN_LEVELS, EQ_LN_B = 3, 8
-# phase 1's kernels are timed at the bench batch and at the cold cell's
+# phase 1's kernels are timed at the bench batch and at the cold cell's,
+# and in float64 at the bench batch on the benchmark's configuration
+# test01_f64 (test_01's 74 simple bounds over levels of 33, 3, 2 and 97
+# rows, lexls's default tolerances), read from its file
 PHASE1_B_LARGE = 10240
+T01_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "lexbench", "configs",
+                          "test01_f64.json")
 
 
 def _card():
@@ -244,14 +249,15 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, dtype=torch.float32):
     """(bound_ms, bound_by): the least time the card could take, the larger
-    of the bytes over its memory rate and the operations over its float32
-    rate outside the tensor cores (``lexls_tpu_torch/perf.py``, NVIDIA's
-    H100 SXM data sheet)."""
-    from lexls_tpu_torch.perf import H100_HBM_BYTES_S, H100_PEAK_F32
+    of the bytes over its memory rate and the operations over its rate in
+    ``dtype`` outside the tensor cores (``lexls_tpu_torch/perf.py``,
+    NVIDIA's H100 SXM data sheet)."""
+    from lexls_tpu_torch.perf import H100_HBM_BYTES_S, H100_PEAK_F32, H100_PEAK_F64
 
-    t_bytes, t_ops = nbytes / H100_HBM_BYTES_S, flops / H100_PEAK_F32
+    peak = H100_PEAK_F64 if dtype == torch.float64 else H100_PEAK_F32
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -305,6 +311,51 @@ def _bench_problem(dtype, dev, Bn=B):
 
     prob, base, drifts, lbs, ubs = bench_problem(Bn, T_MAX, dtype, dev)
     return prob, bench_params(), base, drifts, lbs[0], ubs[0]
+
+
+def _test01_problem(dev, Bn, config=None):
+    """The hierarchy of the benchmark's test01_f64 configuration (the dict
+    ``config``, by default its file ``T01_CONFIG``) in its dtype, and two
+    drifts of ``Bn`` copies perturbed on the general rows (the bound rows
+    stay unit rows), each by the configuration's ``perturbation``.  Returns
+    (struct, params, A0, A1, lb, ub)."""
+    from lexls_tpu_torch.lexlsi import Structure
+    from lexls_tpu_torch.oracle import random_inequality_hierarchy
+    from lexls_tpu_torch.types import ParametersLexLSI
+
+    if config is None:
+        with open(T01_CONFIG) as fh:
+            config = json.load(fh)
+    h = config["hierarchy"]
+    prob = random_inequality_hierarchy(np.random.default_rng(h["seed"]), config["n_var"],
+                                       list(config["dims"]),
+                                       equality_fraction=h["equality_fraction"],
+                                       tight_fraction=h["tight_fraction"],
+                                       simple_bounds=config["simple_bounds"])
+    struct = Structure.of(prob)
+    kw = dict(dtype=getattr(torch, config["dtype"]), device=dev)
+    general = torch.ones(prob.n_ctr, 1, **kw)
+    general[:struct.d0] = 0.0
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    noise = config["perturbation"] * general * torch.randn(2, Bn, prob.n_ctr, prob.n_var,
+                                                           generator=g, **kw)
+    A0 = torch.as_tensor(prob.A, **kw) + noise[0]
+    lb, ub = (torch.as_tensor(a, **kw) for a in (prob.lb, prob.ub))
+    return struct, ParametersLexLSI(**config["params"]), A0, (A0 + noise[1]).contiguous(), lb, ub
+
+
+def _b2_gauges(fn):
+    """B2's gauges of the launch in ``fn``, recorded alone: its resident
+    blocks per SM, the waves its batch takes and its shared memory a block."""
+    from lexls_tpu_torch import tracing
+
+    tracing.reset()
+    with tracing.recording():
+        fn()
+    torch.cuda.synchronize()
+    g = tracing.snapshot().gauges
+    return ", ".join(f"{k} {g.get(k)}" for k in ("b2.blocks_per_sm", "b2.waves", "b2.smem_bytes"))
 
 
 def _phase1(A, lbs, ubs, struct, params, x=None, ct=None):
@@ -578,14 +629,16 @@ def print_layouts():
 
 def check_phase1(dev, report):
     """Phase 1's kernels (``csrc/phase1.cu``) on a warm step of the bench
-    problem, float32, at B=384 and B=10,240: the activation from the cold
-    working set, and the hot start from the cold answer.  Each against its
-    plain version on the same CUDA tensors (the activation equal; of the hot
-    start's fields Ax, v and dv to 1e-6 of sum |A x|, every other one equal,
-    and v, Adx and dv equal to the plain formulas on its own Ax), then timed:
-    the kernel's own device time (CUDA events around its launch, under
+    problem, float32, at B=384 and B=10,240, and of the test01_f64
+    hierarchy (a simple-bounds level), float64, at B=384: the activation
+    from the cold working set, and the hot start from the cold answer.
+    Each against its plain version on the same CUDA tensors (the activation
+    equal; of the hot start's fields Ax, v and dv to 1e-6 of sum |A x| in
+    float32 and 1e-12 in float64, every other one equal, and v, Adx and dv
+    equal to the plain formulas on its own Ax), then timed: the kernel's own
+    device time (CUDA events around its launch, under
     ``tracing.recording(device_events=True)``) beside its bound (every
-    input and output once over 3.35 TB/s, or its operations over 67
+    input and output once over 3.35 TB/s, or its operations over 67 or 34
     TFLOP/s) and the plain version's device time (CUDA events around the
     call), and the host's time to issue each (perf_counter, no synchronize;
     the median of 50 calls)."""
@@ -602,14 +655,21 @@ def check_phase1(dev, report):
         torch.cuda.synchronize()
         return statistics.median(times)
 
-    for Bn in (B, PHASE1_B_LARGE):
-        prob, params, base, drifts, lb, ub = _bench_problem(torch.float32, dev, Bn)
-        struct = Structure.of(prob)
-        m, n = prob.n_ctr, prob.n_var
-        A0, A1 = ((base + drifts[k]).contiguous() for k in (0, 1))
+    def cases():
+        """(label, report key, struct, params, A0, A1, lb, ub), made one at a time."""
+        for Bn in (B, PHASE1_B_LARGE):
+            prob, params, base, drifts, lb, ub = _bench_problem(torch.float32, dev, Bn)
+            A0, A1 = ((base + drifts[k]).contiguous() for k in (0, 1))
+            yield f"B={Bn}", f"B{Bn}", Structure.of(prob), params, A0, A1, lb, ub
+        yield (f"test_01 f64 B={B}", f"B{B}_f64", *_test01_problem(dev, B))
+
+    for what, key_b, struct, params, A0, A1, lb, ub in cases():
+        Bn, m, n = A0.shape
+        dtype = A0.dtype
+        tol = 1e-12 if dtype == torch.float64 else 1e-6
         lbs, ubs = lb.expand(Bn, m).contiguous(), ub.expand(Bn, m).contiguous()
         zi = torch.zeros(Bn, m, dtype=torch.int32, device=dev)
-        zx, zv = (torch.zeros(Bn, k, dtype=torch.float32, device=dev) for k in (n, m))
+        zx, zv = (torch.zeros(Bn, k, dtype=dtype, device=dev) for k in (n, m))
         cold = solve_core_fused(A0, lbs, ubs, *activation(A0, lbs, ubs, zi, struct.d0), zx, zv,
                                 None, struct=struct, params=params, x_guess_specified=False,
                                 v0_specified=False)
@@ -634,13 +694,13 @@ def check_phase1(dev, report):
                    if f not in err and not torch.equal(getattr(got_w, f), getattr(want_w, f))]
         differ += [f"{f} on its own Ax" for f, w in own.items()
                    if not torch.equal(getattr(got_w, f), w)]
-        print(f"[phase1 B={Bn}] against the plain versions: the activation's fields and the hot "
+        print(f"[phase1 {what}] against the plain versions: the activation's fields and the hot "
               f"start's {len(got_w._fields) - len(err)} exact fields equal, and v, Adx and dv "
               f"on its own Ax: {not differ} {differ}; max |err| / sum |A x|: "
-              + ", ".join(f"{f} {e:.3e}" for f, e in err.items()) + " (bound 1e-6)")
-        if differ or max(err.values()) > 1e-6:
-            raise SystemExit(f"phase 1's kernels disagree with their plain versions at B={Bn}")
-        es, bm = 4, Bn * m
+              + ", ".join(f"{f} {e:.3e}" for f, e in err.items()) + f" (bound {tol:g})")
+        if differ or max(err.values()) > tol:
+            raise SystemExit(f"phase 1's kernels disagree with their plain versions at {what}")
+        es, bm = A1.element_size(), Bn * m
         a_bytes = A1.numel() * es
         nbytes = {"activation": a_bytes + 2 * bm * es + 3 * bm * 4 + Bn * 4,
                   "phase1_warm": a_bytes + 2 * bm * es + 2 * Bn * n * es + 2 * bm * 4 + Bn * 4
@@ -651,20 +711,20 @@ def check_phase1(dev, report):
                  lambda: activation_ref(*act_args)),
                 ("phase1_warm", "warm_kernel", lambda: phase1_warm(*warm_args, **kw),
                  lambda: phase1_warm_ref(*warm_args, **kw))):
-            own, others = _own_device_time(f"[phase1 {key} B={Bn}]", kernel, fn, 20)
+            own, others = _own_device_time(f"[phase1 {key} {what}]", kernel, fn, 20)
             plain = _cuda_ms(ref, 20)
-            bound_ms, by = _bound(nbytes[key], flops[key])
+            bound_ms, by = _bound(nbytes[key], flops[key], dtype)
             host, host_plain = issue_us(fn), issue_us(ref)
-            print(f"[phase1 {key} B={Bn}] own {own:.4f} ms against a bound of {bound_ms:.4f} ms "
+            print(f"[phase1 {key} {what}] own {own:.4f} ms against a bound of {bound_ms:.4f} ms "
                   f"by {by} ({nbytes[key] / 1e6:.2f} MB, {flops[key] / 1e6:.2f} MFLOP; "
                   f"{100 * bound_ms / own:.1f}% of its roofline); the plain version "
                   f"{plain:.4f} ms on the card; host issue {host:.1f} us, the plain version's "
                   f"{host_plain:.1f} us")
             if others:
                 raise SystemExit(f"phase1 {key}: the wrapper launches {others:g} other kernels")
-            report[key].setdefault("card_ms", {})[f"B{Bn}"] = round(own, 5)
-            report[key].setdefault("plain_ms", {})[f"B{Bn}"] = round(plain, 5)
-            report[key].setdefault("bound_ms", {})[f"B{Bn}"] = round(bound_ms, 5)
+            report[key].setdefault("card_ms", {})[key_b] = round(own, 5)
+            report[key].setdefault("plain_ms", {})[key_b] = round(plain, 5)
+            report[key].setdefault("bound_ms", {})[key_b] = round(bound_ms, 5)
 
 
 def check_fused(dev, report):
@@ -771,6 +831,8 @@ def check_fused(dev, report):
             print(f"{label.split(' log')[0]} kernel ms per call with the options off / log on "
                   f"/ log and cycling on / off again: "
                   f"{' / '.join(f'{t:.4f}' for t in turns)}")
+            print(f"{label.split(' log')[0]} gauges at B={B}: "
+                  + _b2_gauges(lambda: fused_active_set(*args, **kw_off)))
             if step == 1:
                 own = _options_device_time(label.split(' log')[0], args,
                                            (("off", kw_off), ("log on", kw_log),
@@ -872,7 +934,8 @@ def check_simple_bounds(dev):
               f"{params.max_number_of_factorizations} spent); iterations mean "
               f"{float(whole.it.float().mean()):.2f} max {int(whole.it.max())}")
         ms = _cuda_ms(lambda: fused_active_set(*_state_args(A1, s1), **cap, **kw), 5)
-        print(f"{label} {what}, kernel {ms:.4f} ms per call (B={B})")
+        print(f"{label} {what}, kernel {ms:.4f} ms per call (B={B}); gauges: "
+              + _b2_gauges(lambda: fused_active_set(*_state_args(A1, s1), **kw)))
 
 
 def check_tracked_simple_bounds(dev):

@@ -482,6 +482,19 @@ def _blocks_per_sm(lay: SharedLayout, dtype) -> int:
     return fused_occupancy(lay, dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, asked once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def waves(batch: int, blocks_per_sm: int, sm_count: int) -> int:
+    """How many rounds of resident blocks a launch of ``batch`` blocks
+    takes on ``sm_count`` SMs that hold ``blocks_per_sm`` each: the gauge
+    ``b2.waves`` of a traced launch."""
+    return -(-batch // (blocks_per_sm * sm_count))
+
+
 @functools.lru_cache(maxsize=64)
 def _level_table(dims: tuple, device: torch.device) -> torch.Tensor:
     """(2, p) int32 on ``device``: level sizes and first rows, made once
@@ -534,9 +547,11 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
     wrapper, and the result's ``lb``/``ub`` are the inputs themselves
     unless cycling handling is on.  ``lod_shared`` forces the kernel's
     layout (:func:`fused_layout`) for measurements; a launch that the card
-    refuses raises.  With tracing on, a launch sets the gauge
+    refuses raises.  With tracing on, a launch sets the gauges
     ``b2.blocks_per_sm``, the resident blocks per SM that the card reports
-    at its layout (:mod:`lexls_tpu_torch.tracing`).
+    at its layout, ``b2.waves``, the rounds of resident blocks the batch
+    takes (:func:`waves`), and ``b2.smem_bytes``, the layout's shared
+    memory a block (:mod:`lexls_tpu_torch.tracing`).
     """
     kw = dict(dims=dims, prio=prio, elig=elig, tol_ld=tol_ld, tol_feas=tol_feas,
               tol_wrong=tol_wrong, tol_correct=tol_correct, max_fact=max_fact,
@@ -599,7 +614,10 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
            *(log_in or (None,) * 8), *(cyc_in or (None,) * 4), lvl, prio, elig, vidx)
     name, fn = _fused_entry(dtype)
     if tracing.enabled():
-        tracing.gauge("b2.blocks_per_sm", _blocks_per_sm(lay, dtype))
+        per_sm = _blocks_per_sm(lay, dtype)
+        tracing.gauge("b2.blocks_per_sm", per_sm)
+        tracing.gauge("b2.waves", waves(B, per_sm, _sm_count(dev)))
+        tracing.gauge("b2.smem_bytes", lay.nbytes)
     _build.launch(fn, name, lambda: _entry_args(
         [None if t is None else t.data_ptr() for t in ins],
         [None if t is None else t.data_ptr() for t in outs], lay,

@@ -31,8 +31,10 @@ The spans of a warm or cold step of the whole-solve tier:
     arrays, the launch itself.
 
 Counters and gauges: ``launches.<C entry>`` counts each kernel's launches;
-the gauge ``b2.blocks_per_sm`` is the card's resident blocks per SM for
-B2's last launch; ``tracing.dropped`` counts spans past :data:`CAP`.
+for B2's last launch, the gauge ``b2.blocks_per_sm`` is the card's resident
+blocks per SM, ``b2.waves`` the rounds of resident blocks its batch takes
+over the card's SMs, and ``b2.smem_bytes`` the shared memory a block asks
+for; ``tracing.dropped`` counts spans past :data:`CAP`.
 Under ``recording(device_events=True)`` every launch is also bracketed by
 CUDA events on the current stream, which :func:`snapshot` returns as
 ``(entry, start, end)``: the kernel's own device time, apart from its
