@@ -228,7 +228,7 @@ def bench_equality(device, dtype, B):
     """Config 1: equality l-QR solves/s, N back-to-back
     ``solve_equality_batched`` calls (``bench_extra.py:97-114``)."""
     from lexls_tpu_torch import solve_equality_batched
-    from lexls_tpu_torch.lexlsi import full_fp32
+    from lexls_tpu_torch.active_set import full_fp32
 
     full_fp32()
     As, bs, params = config1_problem(B, dtype, device)
@@ -277,7 +277,7 @@ def bench_inequality_cold(device, dtype, B, mode="tracked"):
     """Config 2: cold solves/s, N back-to-back cold solves
     (``bench_extra.py:147-185``) of :func:`cold_chain` through
     :func:`config2_solver`."""
-    from lexls_tpu_torch.lexlsi import full_fp32
+    from lexls_tpu_torch.active_set import full_fp32
 
     full_fp32()
     prob, params, inp = config2_problem(B, dtype, device)
@@ -299,7 +299,7 @@ def bench_deep_regularized(device, dtype, B, mode="tracked"):
     ``tracked`` through ``solve_core_cold_tracked(reg=...)``, ``exact``
     through ``solve_batched`` (the exact tier)."""
     from lexls_tpu_torch import Structure, solve_batched, solve_core_cold_tracked
-    from lexls_tpu_torch.lexlsi import full_fp32
+    from lexls_tpu_torch.active_set import full_fp32
 
     if mode not in ("tracked", "exact"):
         raise ValueError(f"config 3 mode {mode!r}: tracked or exact")

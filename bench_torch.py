@@ -295,7 +295,7 @@ class _Prefixed:
 
 
 def main():
-    from lexls_tpu_torch.lexlsi import full_fp32
+    from lexls_tpu_torch.active_set import full_fp32
 
     try:
         device = bench_extra_torch.bench_device()

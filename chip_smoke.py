@@ -643,7 +643,7 @@ def check_phase1(dev, report):
     call), and the host's time to issue each (perf_counter, no synchronize;
     the median of 50 calls)."""
     from lexls_tpu_torch import Structure, solve_core_fused
-    from lexls_tpu_torch.lexlsi import _form_step, _initialize_v0
+    from lexls_tpu_torch.active_set import _form_step, _initialize_v0
     from lexls_tpu_torch.ops import activation, activation_ref, phase1_warm, phase1_warm_ref
 
     def issue_us(fn, calls=50):
@@ -739,7 +739,8 @@ def check_fused(dev, report):
     log on and with both on beside that."""
     import dataclasses
 
-    from lexls_tpu_torch.lexlsi import Structure, active_set_kwargs
+    from lexls_tpu_torch.active_set import active_set_kwargs
+    from lexls_tpu_torch.lexlsi import Structure
     from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
 
     for dtype in (torch.float64, torch.float32):
@@ -875,7 +876,7 @@ def check_simple_bounds(dev):
     the test_01 shape: SB_B_PLAIN instances cold for SB_CAP iterations (a
     cold solve here takes several hundred, too many for the plain version)
     and a whole warm step; the kernel also solves B instances cold."""
-    from lexls_tpu_torch.lexlsi import active_set_kwargs
+    from lexls_tpu_torch.active_set import active_set_kwargs
     from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
     from lexls_tpu_torch.types import ParametersLexLSI
 
@@ -1084,7 +1085,7 @@ def measure_test01_cycling(dev):
     longer loop.  The log must not change what the kernel does."""
     from collections import Counter
 
-    from lexls_tpu_torch.lexlsi import active_set_kwargs
+    from lexls_tpu_torch.active_set import active_set_kwargs
     from lexls_tpu_torch.ops import fused_active_set
     from lexls_tpu_torch.types import ParametersLexLSI
 
@@ -1150,7 +1151,7 @@ def _plain_sequence(A_seq, lb_seq, ub_seq, struct, params):
     the slope cancels, runs through the kernel as in the library).
     Returns (x, status, ctr_type), status as the active-set loop leaves it
     (UNKNOWN where the factorization budget ran out)."""
-    from lexls_tpu_torch.lexlsi import active_set_kwargs
+    from lexls_tpu_torch.active_set import active_set_kwargs
     from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
 
     kw = active_set_kwargs(struct, params, A_seq.device)
@@ -1596,14 +1597,15 @@ def check_regularized_panel(dev):
     import dataclasses
 
     from lexls_tpu_torch import Structure
-    from lexls_tpu_torch.lexlsi import _masked_general
+    from lexls_tpu_torch.active_set import _masked_general
     from lexls_tpu_torch.ops import factorize_fast_batched
     from lexls_tpu_torch.types import RegularizationType as RT
 
     prob, params, A, lb, ub, reg = _config3_problem(REG_B_PLAIN, torch.float64, dev)
     struct = Structure.of(prob)
     ct = torch.as_tensor(np.random.default_rng(3).integers(0, 4, A.shape[:2]), device=dev)
-    Ag, bg, fm, fv = _masked_general(A, lb, ub, ct.to(torch.int32), struct)
+    Ag, bg, fm, fv = _masked_general(A, lb, ub, ct.to(torch.int32), d0=struct.d0,
+                                     var_idx=struct.var_idx)
     cases = [(rt, 0.0) for rt in RT if rt != RT.NONE] + [(RT.TIKHONOV, 5.0)]
     for rt, vf in cases:
         lp = dataclasses.replace(params, regularization_type=rt,
@@ -1644,10 +1646,11 @@ def _fixed_point_check(label, st, A, lb, ub, reg, struct, params):
     check."""
     import dataclasses
 
-    from lexls_tpu_torch.lexlsi import _factorize_masked, _masked_general, _verify_with_f
+    from lexls_tpu_torch.active_set import _masked_general
+    from lexls_tpu_torch.lexlsi import _factorize_masked, _verify_with_f
 
     s = dataclasses.replace(st, status=torch.full_like(st.status, -1))
-    Ag, bg, fm, fv = _masked_general(A, lb, ub, s.ctr_type, struct)
+    Ag, bg, fm, fv = _masked_general(A, lb, ub, s.ctr_type, d0=struct.d0, var_idx=struct.var_idx)
     f = _factorize_masked(Ag, bg, fm, fv, struct, params, reg)
     s1 = _verify_with_f(s, A, Ag, f, torch.ones_like(st.status, dtype=torch.bool), struct, params)
     finite = torch.isfinite(st.x).all(1) & torch.isfinite(st.v).all(1)
@@ -1928,7 +1931,8 @@ def _golden(dev, report):
     from lexls_tpu_torch import (ParametersLexLSI, RegularizationType, Structure,
                                  batched_initial_arrays, solve, solve_core_batched,
                                  solve_core_cold_tracked, solve_core_fused)
-    from lexls_tpu_torch.lexlsi import _initial_state, active_set_kwargs
+    from lexls_tpu_torch.active_set import active_set_kwargs
+    from lexls_tpu_torch.lexlsi import _initial_state
     from lexls_tpu_torch import tracing
     from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
 
@@ -2444,7 +2448,7 @@ def _tail_checks(dev, cold, reg, struct, params, short, misses, label="sharded")
     them at the full B; B2 launched at the full B on the cold phase-1 state, as
     ``solve_core_fused`` launches it, paused after SH_CAP iterations."""
     from lexls_tpu_torch import solve_batched
-    from lexls_tpu_torch.lexlsi import active_set_kwargs
+    from lexls_tpu_torch.active_set import active_set_kwargs
     from lexls_tpu_torch.ops import fused as fused_mod
     from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref, panel_factorize_ref
     from lexls_tpu_torch.ops import panel_lqr as panel_mod
@@ -3318,7 +3322,7 @@ def _b2_one(dev, prob, params, A, lb, ub):
     import dataclasses
 
     from lexls_tpu_torch import Structure
-    from lexls_tpu_torch.lexlsi import active_set_kwargs
+    from lexls_tpu_torch.active_set import active_set_kwargs
     from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
 
     struct = Structure.of(prob)
@@ -3381,7 +3385,7 @@ def run_config2_chain(dev, report):
     Fails if a chain does not launch both kernels or gives x of another
     shape or a NaN x, or if B2 leaves its plain version in float64."""
     from bench_extra_torch import UNSOLVED_AT, cold_chain, config2_problem, config2_solver
-    from lexls_tpu_torch.lexlsi import full_fp32
+    from lexls_tpu_torch.active_set import full_fp32
 
     t_phase = time.perf_counter()
     full_fp32()

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from . import lexlse as le
-from .lexlsi import _np, full_fp32, host_device, host_tensor
+from .active_set import full_fp32
+from .lexlsi import _np, host_device, host_tensor
 from .ops import factorize_fast_batched
 from .types import EqualityHierarchy, LexLSError, ParametersLexLSE, RegularizationType
 

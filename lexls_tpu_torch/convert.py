@@ -14,6 +14,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .tracker import Carried
 from .types import InequalityHierarchy, ParametersLexLSI, RegularizationType
 
 
@@ -65,8 +66,6 @@ def carried_from_numpy(rinv, pos, ranks, device, dtype=torch.float64):
     """A :class:`lexls_tpu_torch.tracker.Carried` from the three arrays of
     a carried factorization (for instance the JAX package's ``Carried``,
     field by field)."""
-    from .tracker import Carried
-
     return Carried(*to_torch((np.asarray(rinv), np.asarray(pos), np.asarray(ranks)),
                              device, dtype))
 

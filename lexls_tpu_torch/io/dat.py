@@ -27,6 +27,7 @@ from ..types import (
     build_general_hierarchy,
     build_hierarchy_with_bounds,
 )
+from .native import native_available, parse_file_native
 
 HIER_EQUALITIES = 100
 HIER_INEQUALITIES = 200
@@ -190,8 +191,6 @@ def load_dat_python(path: str) -> DatHierarchy:
 
 def load_dat(path: str) -> DatHierarchy:
     """Load a .dat hierarchy, preferring the native C++ loader."""
-    from .native import native_available, parse_file_native
-
     if native_available():
         try:
             return _to_dat(parse_file_native(path))

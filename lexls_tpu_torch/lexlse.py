@@ -448,7 +448,7 @@ def objective_sensitivity_regularized(f: LexQR, obj_index: int) -> torch.Tensor:
     :func:`initialize_rhs_regularized` (reference ``ObjectiveSensitivity``
     with ``compute_residual_from_factorization = false``).  The fixed
     variables' multipliers are formed where they are used
-    (``lexlsi._select_removal``)."""
+    (``active_set._select_removal``)."""
     B, m, _ = f.lod.shape
     n = f.n_var
     dev = f.lod.device

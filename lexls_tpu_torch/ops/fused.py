@@ -34,21 +34,21 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import tracing
-from ..lexlsi import (
+from ..active_set import (
     _check_blocking,
-    _cycling_step,
+    _commit,
     _empty_log,
-    _fixed_variables,
+    _form_step,
     _initial_cycling,
-    _is_active,
-    _log_append,
     _log_row_table,
-    _rhs_of_type,
+    _masked_general,
+    _select_removal,
+    kmax,
 )
-from ..types import CtrType, TerminationStatus
+from ..types import TerminationStatus
 from . import _build
-from .panel_lqr import (INT_MAX, _STEP_BYTES, _SUFFIX, SharedLayout, _check_cuda_args,
-                        _int_array, _panel_step, odd_stride, pack_regions)
+from .panel_lqr import (_STEP_BYTES, _SUFFIX, SharedLayout, _check_cuda_args, _int_array,
+                        _panel_step, odd_stride, pack_regions)
 
 
 class ActiveSetResult(NamedTuple):
@@ -102,11 +102,6 @@ class ActiveSetResult(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _kmax(dims, n):
-    """Side of the exported per-level R blocks (``tracker.kmax_of``)."""
-    return max(1, max((min(d, n) for d in dims), default=1))
-
-
 def _level_columns(pos, fc, K):
     """(B, K) physical column at position fc + j (clamped past n-1; only
     j < rank is ever read)."""
@@ -145,26 +140,22 @@ def _backsub(R, seg, rank, K):
     return y
 
 
-def _iteration(A, lb, ub, ct, st, ns, x, v, Ax, *, dims, d0, var_idx, prio, elig, tol_ld,
-               tol_feas, tol_wrong, tol_correct, deact_first):
-    """One active-set iteration for every instance (``fused.py:270-677``);
-    the caller keeps the results of alive instances only.  Rows below
-    ``d0`` are the simple-bounds level; the LOD holds the general rows."""
+def _iteration(A, lb, ub, ct, st, x, v, Ax, *, dims, d0, tol_ld, tol_feas, **kw):
+    """One active-set iteration for every instance (``fused.py:270-677``)
+    up to its decision, which the caller commits for the alive instances
+    (:func:`lexls_tpu_torch.active_set._commit`).  Rows below ``d0`` are
+    the simple-bounds level; the LOD holds the general rows.  ``kw`` are
+    the removal selection's options (``var_idx``, ``prio``, ``elig``, the
+    sign tolerances, ``deact_first``)."""
     B, m, n = A.shape
     dev, dtype = A.device, A.dtype
     p = len(dims)
-    iota_m = torch.arange(m, device=dev)
-    active = _is_active(ct)
-    rhs_row = _rhs_of_type(lb, ub, ct)
 
     # ---- masked LexLSE subproblem (formLexLSE, lexlsi.h:968-982): inactive
     # rows are zero; active bound rows fix their variables, whose columns
     # are zeroed and whose values are folded into the rhs
-    actf = active.to(dtype)
-    Agm = A[:, d0:] * actf[:, d0:, None]
-    rhsg = rhs_row[:, d0:] * actf[:, d0:]
+    Agm, rhsg, fixed_mask, fixed_val = _masked_general(A, lb, ub, ct, d0=d0, **kw)
     if d0:
-        fixed_mask, fixed_val = _fixed_variables(active, rhs_row, d0, var_idx, n)
         rhsg = rhsg - (Agm * fixed_val[:, None, :]).sum(2)
         lod = torch.cat([torch.where(fixed_mask[:, None, :], 0.0, Agm), rhsg[:, :, None]], 2)
     else:
@@ -237,9 +228,8 @@ def _iteration(A, lb, ub, ct, st, ns, x, v, Ax, *, dims, d0, var_idx, prio, elig
 
     # ---- step and ratio test
     dx = x_var - x
-    Adx = (A @ dx[:, :, None])[:, :, 0]
-    dv = -v + torch.where(active, Ax + Adx - rhs_row, 0.0)
-    alpha, brow, btype, blocking = _check_blocking(ct, Ax, Adx, v, dv, lb, ub, tol_feas)
+    Adx, dv = _form_step(A, lb, ub, ct, Ax, v, dx)
+    block = _check_blocking(ct, Ax, Adx, v, dv, lb, ub, tol_feas)
 
     # ---- λ sweep by Householder replay (fused.py:537-579), over the
     # general rows
@@ -268,53 +258,8 @@ def _iteration(A, lb, ub, ct, st, ns, x, v, Ax, *, dims, d0, var_idx, prio, elig
         rhs_all = torch.where(valid & below_fc, rhs_all - contrib, rhs_all)
 
     # ---- removal selection (lexlsi.h:1048-1139 + CORRECT_SIGN exemption)
-    LB, UB = int(CtrType.ACTIVE_LB), int(CtrType.ACTIVE_UB)
-    sense = ct
-    found = torch.zeros(B, dtype=torch.bool, device=dev)
-    sel_row = torch.full((B,), -1, dtype=torch.int64, device=dev)
-    sel_val = torch.zeros(B, dtype=dtype, device=dev)
-    for j in range(p):
-        vals = lam[:, j]
-        if d0:
-            # λ of the fixed variables, -A_g^T λ_j over the masked general
-            # rows (lexlse.h:591-601), placed on their bound rows
-            lam_fixed = torch.where(fixed_mask, -(Agm * vals[:, :, None]).sum(1), 0.0)
-            vals = torch.cat([lam_fixed[:, list(var_idx)], vals], 1)
-        a = torch.where(ct == LB, -vals, vals)
-        consider = (elig[j] != 0) & ((sense == LB) | (sense == UB))
-        mark = consider & (a > tol_correct)
-        wrong = consider & (a < -tol_wrong)
-        sense = torch.where(mark & ~found[:, None], int(CtrType.CORRECT_SIGN_OF_LAMBDA), sense)
-        found_j = wrong.any(1)
-        if deact_first:
-            kmin = torch.where(wrong, st, INT_MAX).amin(1)
-            first = wrong & (st == kmin[:, None])
-            val_j = torch.zeros_like(sel_val)
-        else:
-            amin = torch.where(wrong, a, torch.inf).amin(1)
-            tie = wrong & (a == amin[:, None])
-            pmin = torch.where(tie, prio[j], INT_MAX).amin(1)
-            first = tie & (prio[j] == pmin[:, None])
-            val_j = amin
-        row_j = torch.where(first, iota_m, INT_MAX).amin(1)
-        sel_row = torch.where(found_j & ~found, row_j, sel_row)
-        sel_val = torch.where(found_j & ~found, val_j, sel_val)
-        found = found | found_j
-    want_sweep = ~blocking
-    do_remove = want_sweep & found
-    solved = want_sweep & ~found
-
-    # ---- working-set update and step
-    at_b = blocking[:, None] & (iota_m == brow[:, None])
-    at_r = do_remove[:, None] & (iota_m == sel_row[:, None])
-    new_ct = torch.where(at_b, btype[:, None], torch.where(at_r, int(CtrType.INACTIVE), ct))
-    new_st = torch.where(at_b, ns[:, None], torch.where(at_r, -1, st))
-    afl = torch.where(alpha > 0.0, alpha, 0.0)[:, None]
-    return dict(x=x + afl * dx, v=v + afl * dv, Ax=Ax + afl * Adx, dx=dx, dv=dv, Adx=Adx,
-                ct=new_ct.to(torch.int32), st=new_st.to(torch.int32),
-                blocking=blocking, do_remove=do_remove, solved=solved,
-                alpha=alpha, brow=brow, btype=btype, sel_row=sel_row, sel_val=sel_val,
-                rm_type=ct.gather(1, sel_row.clamp(min=0)[:, None])[:, 0], total_rank=ci,
+    removal = _select_removal(lam, ct, st, Agm, fixed_mask, d0=d0, **kw)
+    return dict(dx=dx, dv=dv, Adx=Adx, block=block, removal=removal, total_rank=ci,
                 R=[None if lvl is None else lvl[6] for lvl in levels],
                 rank=[None if lvl is None else lvl[5] for lvl in levels], pos=pos)
 
@@ -325,70 +270,54 @@ def fused_active_set_ref(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fac
                          max_fact, deact_first, d0=0, var_idx=(), iter_cap=0, log_cap=0,
                          cycling=False, cyc_max=50, cyc_relax=1e-8) -> ActiveSetResult:
     """Plain version of :func:`fused_active_set`: iterate until no
-    instance is alive, freezing terminated and paused instances."""
+    instance is alive, freezing terminated and paused instances.  Its
+    state is the result it returns."""
     B, m, n = A.shape
     dev, dtype = A.device, A.dtype
     i32 = dict(dtype=torch.int32, device=dev)
     p = len(dims)
-    kmax = _kmax(dims, n)
-    ct, st, ns, nf = ctr_type, stamp, next_stamp, n_fact
-    dx = torch.zeros(B, n, dtype=dtype, device=dev)
-    dv = torch.zeros(B, m, dtype=dtype, device=dev)
-    Adx = torch.zeros(B, m, dtype=dtype, device=dev)
-    na, nd = torch.zeros(B, **i32), torch.zeros(B, **i32)
+    K = kmax(dims, n)
+    fl = dict(dtype=dtype, device=dev)
     it0 = torch.zeros(B, **i32) if it0 is None else it0
-    it = it0
-    status = torch.full((B,), int(TerminationStatus.UNKNOWN), **i32)
-    rpad = torch.zeros(B, p, kmax, kmax, dtype=dtype, device=dev)
-    posf = torch.arange(n, **i32).expand(B, n)
-    ranks = torch.zeros(B, p, **i32)
-    log = _empty_log(B, log_cap, dtype, dev) if log_state is None else tuple(log_state)
-    cyc = _initial_cycling(B, dev) if cyc_state is None else tuple(cyc_state)
+    r = ActiveSetResult(
+        x, v, torch.zeros(B, n, **fl), torch.zeros(B, m, **fl), Ax, torch.zeros(B, m, **fl),
+        ctr_type, stamp, next_stamp, it0, torch.zeros(B, **i32), torch.zeros(B, **i32), n_fact,
+        torch.full((B,), int(TerminationStatus.UNKNOWN), **i32),
+        torch.zeros(B, p, K, K, **fl), torch.arange(n, **i32).expand(B, n),
+        torch.zeros(B, p, **i32), lb, ub,
+        *(_empty_log(B, log_cap, dtype, dev) if log_state is None else log_state),
+        *(_initial_cycling(B, dev) if cyc_state is None else cyc_state))
     row_table = _log_row_table(((d0,) if d0 else ()) + tuple(dims), dev)
     kw = dict(dims=dims, d0=d0, var_idx=var_idx, prio=prio, elig=elig, tol_ld=tol_ld,
               tol_feas=tol_feas, tol_wrong=tol_wrong, tol_correct=tol_correct,
               deact_first=deact_first)
     while True:
-        alive = (status == int(TerminationStatus.UNKNOWN)) & ((it == 0) | (nf < max_fact))
+        alive = (r.status == int(TerminationStatus.UNKNOWN)) & (
+            (r.it == 0) | (r.n_fact < max_fact))
         if iter_cap:
             # pause (do not terminate) after iter_cap iterations of this call
-            alive = alive & (it < it0 + iter_cap)
+            alive = alive & (r.it < it0 + iter_cap)
         if not bool(alive.any()):
             break
-        r = _iteration(A, lb, ub, ct, st, ns, x, v, Ax, **kw)
-        a1 = alive[:, None]
-        x, v, Ax = (torch.where(a1, r["x"], x), torch.where(a1, r["v"], v),
-                    torch.where(a1, r["Ax"], Ax))
-        dx, dv, Adx = (torch.where(a1, r["dx"], dx), torch.where(a1, r["dv"], dv),
-                       torch.where(a1, r["Adx"], Adx))
-        ct, st = torch.where(a1, r["ct"], ct), torch.where(a1, r["st"], st)
-        # the factorization of the latest alive iteration (fused.py:457-475)
-        rpad = rpad.clone()
-        for k, R in enumerate(r["R"]):
-            if R is not None:
-                K = R.shape[-1]
-                rpad[:, k, :K, :K] = torch.where(alive[:, None, None], R, rpad[:, k, :K, :K])
-        ranks = torch.where(a1, torch.stack(
-            [torch.zeros(B, **i32) if rk is None else rk for rk in r["rank"]], 1), ranks)
-        posf = torch.where(a1, r["pos"], posf)
-        ai = alive.to(torch.int32)
-        status = torch.where(alive & r["solved"], int(TerminationStatus.PROBLEM_SOLVED), status)
+        step = _iteration(A, r.lb, r.ub, r.ctr_type, r.stamp, r.x, r.v, r.Ax, **kw)
+        alpha, brow, btype, blocking = step["block"]
+        found, rrow, rval = step["removal"]
         # the log and the detector see this iteration's change (fused.py:679-746)
-        change = (alive, r["blocking"], r["do_remove"], r["brow"], r["sel_row"], r["btype"])
-        if log_cap:
-            log = _log_append(log, *change, r["alpha"], r["sel_val"], r["total_rank"], row_table)
-        if cycling:
-            cyc, lb, ub, status, log_cycling = _cycling_step(
-                cyc, lb, ub, status, log[5], log[6], *change, r["rm_type"], cyc_max, cyc_relax)
-            log = log[:5] + (log_cycling,) + log[6:]
-        ns = ns + ai * r["blocking"].to(torch.int32)
-        na = na + ai * r["blocking"].to(torch.int32)
-        nd = nd + ai * r["do_remove"].to(torch.int32)
-        nf = nf + ai * (it > 0).to(torch.int32)
-        it = it + ai
-    return ActiveSetResult(x, v, dx, dv, Ax, Adx, ct, st, ns, it, na, nd, nf,
-                           status.to(torch.int32), rpad, posf.contiguous(), ranks, lb, ub,
-                           *log, *cyc)
+        new, _, _ = _commit(r, alive, step["dx"], step["dv"], step["Adx"], alpha, brow, btype,
+                            blocking, rrow, ~blocking & found, ~blocking & ~found,
+                            log=(row_table, rval, step["total_rank"]) if log_cap else None,
+                            cycling=(cyc_max, cyc_relax) if cycling else None)
+        # the factorization of the latest alive iteration (fused.py:457-475)
+        rpad = r.rpad.clone()
+        for k, R in enumerate(step["R"]):
+            if R is not None:
+                Kk = R.shape[-1]
+                rpad[:, k, :Kk, :Kk] = torch.where(alive[:, None, None], R, rpad[:, k, :Kk, :Kk])
+        ranks = torch.where(alive[:, None], torch.stack(
+            [torch.zeros(B, **i32) if rk is None else rk for rk in step["rank"]], 1), r.ranks)
+        r = r._replace(**new, rpad=rpad, ranks=ranks,
+                       posf=torch.where(alive[:, None], step["pos"], r.posf))
+    return r._replace(posf=r.posf.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -582,7 +511,7 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
     _check_cuda_args([A, lb, ub, x, v, Ax, *log_in[3:4]],
                      [ctr_type, stamp, next_stamp, n_fact, prio, elig, vidx,
                       *(() if it0 is None else (it0,)), *log_in[:3], *log_in[4:], *cyc_in], dtype)
-    kmax = _kmax(dims, n)
+    K = kmax(dims, n)
     dmax = max(1, max(dims, default=1))
     lay = fused_layout(m, n, p, d0, dmax, dtype, lod_shared)
 
@@ -604,7 +533,7 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
     lobj_o, lctr_o, ltyp_o, lrank_o, lcyc_o = (
         empty(5, B, log_cap) if log_cap else (torch.empty(B, 0, dtype=torch.int32, device=dev),) * 5)
     lval_o = torch.empty(B, log_cap, dtype=dtype, device=dev)
-    rpad = torch.empty(B, p, kmax, kmax, dtype=dtype, device=dev)
+    rpad = torch.empty(B, p, K, K, dtype=dtype, device=dev)
     posf, ranks = empty(1, B, n)[0], empty(1, B, p)[0]
     work = None if lay.in_shared else torch.empty(B, mg * lay.ld, dtype=dtype, device=dev)
     outs = (x_o, v_o, Ax_o, dx_o, dv_o, Adx_o, ct_o, st_o, ns_o, it_o, na_o, nd_o, nf_o, status_o,
@@ -621,7 +550,7 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
     _build.launch(fn, name, lambda: _entry_args(
         [None if t is None else t.data_ptr() for t in ins],
         [None if t is None else t.data_ptr() for t in outs], lay,
-        dict(B=B, m=m, n=n, p=p, d0=d0, kmax=kmax, max_fact=int(max_fact),
+        dict(B=B, m=m, n=n, p=p, d0=d0, kmax=K, max_fact=int(max_fact),
              deact_first=int(bool(deact_first)), iter_cap=int(iter_cap), log_cap=int(log_cap),
              cycling=int(bool(cycling)), cyc_max=int(cyc_max)),
         (tol_ld, tol_feas, tol_wrong, tol_correct, cyc_relax), _build.current_stream(dev)))

@@ -21,10 +21,11 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import regularization as reg
+from ..active_set import INT_MAX, full_fp32
+from ..lexlse import LexQR, _apply_wy, _intermediate_x, _wy_raw
 from ..types import LexLSError, ParametersLexLSE, RegularizationType
 from . import _build
-
-INT_MAX = torch.iinfo(torch.int32).max
 
 
 def _panel_step(counter, block, cn, pos, col_at, ci, stopped, rank_row, hh,
@@ -350,10 +351,6 @@ def factorize_fast_batched(
     carries each objective's damped solution and residuals.  Returns a
     batched :class:`lexls_tpu_torch.lexlse.LexQR`.
     """
-    from ..lexlse import LexQR
-    from ..lexlsi import full_fp32
-    from .. import regularization as reg
-
     full_fp32()
     B, m, n = A.shape
     dtype, dev = A.dtype, A.device
@@ -467,9 +464,6 @@ def _track_mu(lod, hh, level_rows, ns_pos, X_mu, residual_mu, dims, first_cols, 
     ``lexlse.h:1774-1886``): the damped rhs, the damped residual through
     the level's WY factors, and the objective's damped solution completed
     through the levels above.  Returns (X_mu, residual_mu, rhs (B, K))."""
-    from .. import regularization as reg
-    from ..lexlse import _apply_wy, _intermediate_x, _wy_raw
-
     n = pos.shape[1]
     dim = dims[obj]
     K = min(dim, n)

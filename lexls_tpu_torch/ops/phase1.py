@@ -24,7 +24,7 @@ import ctypes
 import functools
 import torch
 
-from ..lexlsi import (
+from ..active_set import (
     Phase1Result,
     _form_initial_working_set,
     _matvec,

@@ -198,43 +198,3 @@ def make_sharded_solver_2d(mesh, struct: Structure, params: ParametersLexLSI,
     first, then over "dcn"."""
     run = _local_solver(struct, params, x_guess_specified, v0_specified, mode, kw)
     return _sharded(run, _mesh_groups(mesh), _rank_device(mesh))
-
-
-def make_sharded_sequence_solver(mesh, struct: Structure, params: ParametersLexLSI,
-                                 mode: str = "xla", **kw):
-    """Warm-started sequences sharded over a ``torch.distributed`` device
-    mesh (``sequence.py:270-324``): BASELINE config 4 (an IK sequence)
-    composed with config 5 (many independent hierarchies across devices).
-
-    ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh`` (for
-    instance :func:`make_host_mesh`), and the sequence batch is split over
-    every one of its dimensions.  Torch runs one process per device, so the
-    returned ``fn(A_seq, lb_seq, ub_seq, reg) -> (outs, metrics)`` takes
-    **this rank's shard** of the (B, T, m, n) batch, where the JAX
-    package's takes the global array, and returns this rank's outputs: the
-    6-tuple of :func:`lexls_tpu_torch.sequence.solve_sequence_batched`.
-    ``mode="xla"`` runs ``solve_sequence_batched`` (the exact tier),
-    ``"fused"`` and ``"tracked"`` ``solve_sequence_batched_fused``
-    (``tracked=`` the mode; ``kw`` the tracker's ``ns_iters``,
-    ``cert_tol``, ``loop_cap``, ``trip1_noext``, ``shrink`` and
-    ``handover_slab``, :data:`SEQUENCE_KNOBS`;
-    any other option raises ``LexLSError``).  NumPy
-    inputs go to the rank's device.  Only ``metrics = {"solved",
-    "max_iterations", "sum_iterations"}``, over every step of every
-    sequence, cross ranks: all-reduced over each mesh dimension in turn, the
-    innermost first."""
-    _check_options(mode, kw, SEQUENCE_KNOBS)
-    groups, dev = _mesh_groups(mesh), _rank_device(mesh)
-
-    def fn(A_seq, lb_seq, ub_seq, reg):
-        from ..sequence import solve_sequence_batched, solve_sequence_batched_fused
-
-        A_seq = host_tensor(A_seq, dev)
-        if mode == "xla":
-            outs = solve_sequence_batched(A_seq, lb_seq, ub_seq, reg, struct, params)
-        else:
-            outs = solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct, params,
-                                                tracked=mode == "tracked", **kw)
-        return outs, _reduce_metrics(outs[2], outs[3], groups)
-
-    return fn

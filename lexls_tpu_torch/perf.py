@@ -13,7 +13,7 @@ The card: NVIDIA H100 80GB HBM3 (SXM, 700 W).  NVIDIA's H100 SXM data sheet
 gives 67 TFLOP/s in float32 and 34 TFLOP/s in float64 outside the tensor
 cores, and 3.35 TB/s of HBM3.  The port's kernels use no tensor cores,
 and its float32 matmuls are held at full precision
-(:func:`lexls_tpu_torch.lexlsi.full_fp32`), so a TF32 or bf16 rate is no
+(:func:`lexls_tpu_torch.active_set.full_fp32`), so a TF32 or bf16 rate is no
 ceiling of this code and is not reported.  A card set below 700 W runs
 below these rates.
 """

@@ -9,9 +9,9 @@ through the whole-solve tier (kernel B2) or through the exact tier
 (kernel B1 in every iteration).  Every entry point takes tensors, which keep
 their device and dtype, or NumPy arrays, which go to ``device`` (the card
 unless the caller passes ``device="cpu"``; without a card that raises).
-:func:`make_sharded_sequence_solver` (defined beside the other sharded
-solvers in :mod:`lexls_tpu_torch.parallel.batch`) runs them on each rank of
-a ``torch.distributed`` device mesh.
+:func:`make_sharded_sequence_solver` runs them on each rank of a
+``torch.distributed`` device mesh, through the mesh helpers of
+:mod:`lexls_tpu_torch.parallel.batch`.
 """
 
 from __future__ import annotations
@@ -21,9 +21,12 @@ from typing import Optional
 import torch
 
 from . import tracing
-from .lexlsi import Structure, full_fp32, host_tensor, solve_core_batched, solve_core_fused
+from .active_set import full_fp32
+from .lexlsi import Structure, host_tensor, solve_core_batched, solve_core_fused
 from .ops.phase1 import activation
-from .parallel.batch import make_sharded_sequence_solver  # noqa: F401  (JAX's home of it)
+from .parallel.batch import (SEQUENCE_KNOBS, _check_options, _mesh_groups, _rank_device,
+                             _reduce_metrics)
+from .tracker import solve_core_cold_tracked, solve_core_tracked
 from .types import ParametersLexLSI
 
 
@@ -96,8 +99,6 @@ def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
     none, and ``reg`` does not reach the tracker (``sequence.py:217-230``).
     NumPy inputs go to ``device`` (see :func:`_sequence_tensors`).
     """
-    from . import tracker as trk
-
     A_seq, lb_seq, ub_seq, reg = _sequence_tensors(A_seq, lb_seq, ub_seq, reg, device)
     tkw = dict(struct=struct, params=params, ns_iters=ns_iters, cert_tol=cert_tol, stats=stats)
     carried = None
@@ -108,12 +109,11 @@ def solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct: Structure,
             return solve_core_fused(A, lb, ub, c, s, ns, x, v0, reg, struct=struct,
                                     params=params, x_guess_specified=t > 0, v0_specified=False)
         if t == 0:
-            st, carried = trk.solve_core_cold_tracked(A, lb, ub, c, s, ns, x, v0, **tkw)
+            st, carried = solve_core_cold_tracked(A, lb, ub, c, s, ns, x, v0, **tkw)
         else:
-            st, carried = trk.solve_core_tracked(A, lb, ub, c, s, ns, x, v0, carried=carried,
-                                                 loop_cap=loop_cap, trip1_noext=trip1_noext,
-                                                 shrink=shrink, handover_slab=handover_slab,
-                                                 **tkw)
+            st, carried = solve_core_tracked(A, lb, ub, c, s, ns, x, v0, carried=carried,
+                                             loop_cap=loop_cap, trip1_noext=trip1_noext,
+                                             shrink=shrink, handover_slab=handover_slab, **tkw)
         return st
 
     return _run_sequence(A_seq, lb_seq, ub_seq, struct, step)
@@ -162,3 +162,40 @@ def solve_sequence(A_seq, lb_seq, ub_seq, reg, struct: Structure, params: Parame
                                   device=device)
     return tuple(o[0] for o in outs)
 
+
+def make_sharded_sequence_solver(mesh, struct: Structure, params: ParametersLexLSI,
+                                 mode: str = "xla", **kw):
+    """Warm-started sequences sharded over a ``torch.distributed`` device
+    mesh (``sequence.py:270-324``): BASELINE config 4 (an IK sequence)
+    composed with config 5 (many independent hierarchies across devices).
+
+    ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh`` (for
+    instance :func:`lexls_tpu_torch.make_host_mesh`), and the sequence batch is split over
+    every one of its dimensions.  Torch runs one process per device, so the
+    returned ``fn(A_seq, lb_seq, ub_seq, reg) -> (outs, metrics)`` takes
+    **this rank's shard** of the (B, T, m, n) batch, where the JAX
+    package's takes the global array, and returns this rank's outputs: the
+    6-tuple of :func:`solve_sequence_batched`.
+    ``mode="xla"`` runs ``solve_sequence_batched`` (the exact tier),
+    ``"fused"`` and ``"tracked"`` ``solve_sequence_batched_fused``
+    (``tracked=`` the mode; ``kw`` the tracker's ``ns_iters``,
+    ``cert_tol``, ``loop_cap``, ``trip1_noext``, ``shrink`` and
+    ``handover_slab``, :data:`SEQUENCE_KNOBS`;
+    any other option raises ``LexLSError``).  NumPy
+    inputs go to the rank's device.  Only ``metrics = {"solved",
+    "max_iterations", "sum_iterations"}``, over every step of every
+    sequence, cross ranks: all-reduced over each mesh dimension in turn, the
+    innermost first."""
+    _check_options(mode, kw, SEQUENCE_KNOBS)
+    groups, dev = _mesh_groups(mesh), _rank_device(mesh)
+
+    def fn(A_seq, lb_seq, ub_seq, reg):
+        A_seq = host_tensor(A_seq, dev)
+        if mode == "xla":
+            outs = solve_sequence_batched(A_seq, lb_seq, ub_seq, reg, struct, params)
+        else:
+            outs = solve_sequence_batched_fused(A_seq, lb_seq, ub_seq, reg, struct, params,
+                                                tracked=mode == "tracked", **kw)
+        return outs, _reduce_metrics(outs[2], outs[3], groups)
+
+    return fn

@@ -38,24 +38,30 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .active_set import (
+    INT_MAX,
+    _check_blocking,
+    _commit,
+    _form_step,
+    _masked_general,
+    _select_removal,
+    active_set_kwargs,
+    full_fp32,
+    kmax,
+)
 from .lexlsi import (
     LexLSIState,
     Structure,
-    _check_blocking,
     _exact_tail,
     _factorize_masked,
-    _form_step,
     _fused_tail,
     _initial_state,
     _instance_alive,
-    _masked_general,
     _reg_factors,
-    _select_removal,
+    _state_after_b2,
     _verify_with_f,
-    active_set_kwargs,
-    full_fp32,
 )
-from .ops.fused import INT_MAX, _kmax
+from .ops import fused
 from .ops.tri import tri_inv_upper
 from .regularization import _masked_chol_solve, cgls_tikhonov
 from .types import CtrType, LexLSError, ParametersLexLSI, RegularizationType, TerminationStatus
@@ -76,10 +82,6 @@ class Carried(NamedTuple):
     rinv: torch.Tensor
     pos: torch.Tensor
     ranks: torch.Tensor
-
-
-def kmax_of(struct: Structure) -> int:
-    return _kmax(struct.lexlse_dims, struct.n_var)
 
 
 def default_cert_tol(dtype) -> float:
@@ -113,7 +115,7 @@ def carried_from_lexqr(f, struct: Structure) -> Carried:
     whose first iteration runs on the exact tier."""
     n = struct.n_var
     B = f.lod.shape[0]
-    K = kmax_of(struct)
+    K = kmax(struct.lexlse_dims, n)
     dev, dtype = f.lod.device, f.lod.dtype
     iota_k = torch.arange(K, device=dev)
     rpads = []
@@ -666,16 +668,16 @@ def _trip(c: _Trip, A, *, struct: Structure, params: ParametersLexLSI, ns_iters:
     change-absorption inputs: valid for the first trip of a warm solve,
     whose carry matches the previous solve's final working set.
     ``want_why`` keeps the rejection reasons in the result's ``why``."""
-    B, m, n = A.shape
+    B = A.shape[0]
     d0 = struct.d0
     dtype, dev = A.dtype, A.device
     s = c.s
     max_fact = params.max_number_of_factorizations
     offsets, _ = _level_layout(struct, dev)
-    iota_m = torch.arange(m, device=dev)
     alive = _alive(s, c.fall, max_fact)
+    kw = active_set_kwargs(struct, params, dev)
 
-    Ag, bg, fixed_mask, fixed_val = _masked_general(A, s.lb, s.ub, s.ctr_type, struct)
+    Ag, bg, fixed_mask, fixed_val = _masked_general(A, s.lb, s.ub, s.ctr_type, **kw)
     # fixed-variable elimination (lexlse.h:132-156): zero the fixed columns
     # and fold their values into the rhs
     Agz = torch.where(fixed_mask[:, None, :], 0.0, Ag)
@@ -703,40 +705,18 @@ def _trip(c: _Trip, A, *, struct: Structure, params: ParametersLexLSI, ns_iters:
         s.ctr_type, s.Ax, Adx, s.v, dv, s.lb, s.ub, params.tol_feasibility)
 
     lam_all = _hot_lambda(levels, struct, B, dtype, dev)
-    found_rm, rrow, _ = _select_removal(lam_all, s.ctr_type, s.stamp, Ag, fixed_mask, struct,
-                                        params)
+    found_rm, rrow, _ = _select_removal(lam_all, s.ctr_type, s.stamp, Ag, fixed_mask, **kw)
     do_remove = ~blocking & found_rm
     solved = ~blocking & ~found_rm
 
-    # working-set update and step (lexlsi.h:1144-1265), committed only for
-    # alive instances with an accepted carry
+    # the iteration, committed only for alive instances with an accepted
+    # carry: a rejected carry may hold NaNs, which the gate's selection
+    # keeps out of the state the fallback resumes
     commit = alive & ok
     cm = commit[:, None]
-    at_b = (blocking & commit)[:, None] & (iota_m == brow[:, None])
-    at_r = (do_remove & commit)[:, None] & (iota_m == rrow[:, None])
-    INACTIVE = int(CtrType.INACTIVE)
-    ctr_type = torch.where(at_b, btype[:, None], torch.where(at_r, INACTIVE, s.ctr_type))
-    stamp = torch.where(at_b, s.next_stamp[:, None], torch.where(at_r, -1, s.stamp))
-    # gate by selection, never by multiplication: a rejected carry may
-    # carry NaNs, and 0 * NaN would poison the state the fallback resumes
-    take = ((alpha > 0.0) & commit)[:, None]
-    a1 = alpha[:, None]
-    ci = commit.to(torch.int32)
-    s_new = dataclasses.replace(
-        s,
-        x=torch.where(take, s.x + a1 * dx, s.x),
-        v=torch.where(take, s.v + a1 * dv, s.v),
-        Ax=torch.where(take, s.Ax + a1 * Adx, s.Ax),
-        dx=torch.where(cm, dx, s.dx), dv=torch.where(cm, dv, s.dv),
-        Adx=torch.where(cm, Adx, s.Adx),
-        ctr_type=ctr_type.to(torch.int32), stamp=stamp.to(torch.int32),
-        next_stamp=s.next_stamp + (blocking & commit).to(torch.int32),
-        it=s.it + ci,
-        n_act=s.n_act + (blocking & commit).to(torch.int32),
-        n_deact=s.n_deact + (do_remove & commit).to(torch.int32),
-        n_fact=s.n_fact + (commit & (s.it > 0)).to(torch.int32),
-        status=torch.where(commit & solved, int(TerminationStatus.PROBLEM_SOLVED),
-                           s.status).to(torch.int32))
+    new, at_b, at_r = _commit(s, commit, dx, dv, Adx, alpha, brow, btype, blocking, rrow,
+                              do_remove, solved)
+    s_new = dataclasses.replace(s, **new)
 
     # a committed removal deletes its level's last carried pivot, and saves
     # the deleted pivot's elimination change (from this trip's factors,
@@ -1009,8 +989,6 @@ def solve_core_cold_tracked(
     per-instance fallback.  Returns ``(state, carried')``, and with
     ``debug_fall`` also ``(fall, fall_trip, fall_why)``
     (:func:`_tracked_tail`)."""
-    from .ops.fused import fused_active_set
-
     _check_tracked_config(params, reg, "solve_core_cold_tracked")
     full_fp32()
     if cert_tol is None:
@@ -1019,21 +997,18 @@ def solve_core_cold_tracked(
     reg = _reg_factors(reg, params, A)
     s = _initial_state(A, lb, ub, ctr_type0, stamp0, next_stamp0, x0, v0, struct, params,
                        x_guess_specified, v0_specified)
+    kw = active_set_kwargs(struct, params, A.device)
     if reg is not None:
-        Ag, bg, fixed_mask, fixed_val = _masked_general(A, s.lb, s.ub, s.ctr_type, struct)
+        Ag, bg, fixed_mask, fixed_val = _masked_general(A, s.lb, s.ub, s.ctr_type, **kw)
         f = _factorize_masked(Ag, bg, fixed_mask, fixed_val, struct, params, reg)
         s1 = _verify_with_f(s, A, Ag, f, _instance_alive(s, params.max_number_of_factorizations),
                             struct, params)
         carried0 = carried_from_lexqr(f, struct)
     else:
-        out = fused_active_set(A, s.lb, s.ub, s.ctr_type, s.stamp, s.next_stamp, s.x, s.v,
-                               s.Ax, s.n_fact, iter_cap=1,
-                               **active_set_kwargs(struct, params, A.device))
+        out = fused.fused_active_set(A, s.lb, s.ub, s.ctr_type, s.stamp, s.next_stamp, s.x,
+                                     s.v, s.Ax, s.n_fact, iter_cap=1, **kw)
         # a paused instance keeps status UNKNOWN: the tracker loop takes it on
-        s1 = dataclasses.replace(
-            s, x=out.x, v=out.v, dx=out.dx, dv=out.dv, Ax=out.Ax, Adx=out.Adx,
-            ctr_type=out.ctr_type, stamp=out.stamp, next_stamp=out.next_stamp, it=out.it,
-            n_act=out.n_act, n_deact=out.n_deact, n_fact=out.n_fact, status=out.status)
+        s1 = _state_after_b2(s, out, params, final=False)
         carried0 = bootstrap_carried((out.rpad, out.posf, out.ranks))
 
     # the bootstrap factors describe the INITIAL working set, while the

@@ -13,12 +13,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import lexlse
+from .active_set import _masked_general, full_fp32
 from .lexlsi import (
     Structure,
     _factorize_masked,
-    _masked_general,
     _reg_factors,
-    full_fp32,
     host_device,
     host_tensor,
     initial_activation,
@@ -47,8 +47,6 @@ def solve_with_working_set(prob, ctr_type: np.ndarray, params: Optional[Paramete
     variables.  One factorization through kernel B1 on ``device`` (the
     card by default, ``device="cpu"`` the plain version).  Returns (x, v),
     NumPy, with v the signed violation of the active rows."""
-    from . import lexlse
-
     full_fp32()
     params = params or ParametersLexLSI()
     dev = host_device(device)
@@ -57,7 +55,7 @@ def solve_with_working_set(prob, ctr_type: np.ndarray, params: Optional[Paramete
     A = t(prob.A)[None]
     ct = host_tensor(ctr_type, dev)[None]
     Ag, bg, fixed_mask, fixed_val = _masked_general(A, t(prob.lb)[None], t(prob.ub)[None], ct,
-                                                    struct)
+                                                    d0=struct.d0, var_idx=struct.var_idx)
     f = _factorize_masked(Ag, bg, fixed_mask, fixed_val, struct, params,
                           _reg_factors(prob.regularization, params, A))
     x = lexlse.solve(f)[0].cpu().numpy()

@@ -26,7 +26,7 @@ from lexls_tpu.parallel import batched_initial_arrays as jax_initial_arrays
 
 import lexls_tpu_torch as lt
 from lexls_tpu_torch import convert, lexlse
-from lexls_tpu_torch.lexlsi import _masked_general
+from lexls_tpu_torch.active_set import _masked_general
 from lexls_tpu_torch.ops import factorize_fast_batched
 from torch_parity import INT_FIELDS, assert_log_match
 
@@ -228,7 +228,7 @@ def test_sensitivities_all_matches_jax(simple):
     ct[:, -2:] = 3
     A, lb, ub, ctt = convert.to_torch((As, np.tile(prob.lb, (B, 1)), np.tile(prob.ub, (B, 1)),
                                        ct), "cpu")
-    Ag, bg, fm, fv = _masked_general(A, lb, ub, ctt, ts)
+    Ag, bg, fm, fv = _masked_general(A, lb, ub, ctt, d0=ts.d0, var_idx=ts.var_idx)
     f = factorize_fast_batched(Ag, bg, ts.lexlse_dims, fixed_mask=fm, fixed_val=fv)
     jf = jax_factorize(jnp.asarray(Ag.numpy()), jnp.asarray(bg.numpy()), ts.lexlse_dims,
                        JT.ParametersLexLSE(), jnp.asarray(fm.numpy()), jnp.asarray(fv.numpy()),

@@ -40,7 +40,7 @@ from lexls_tpu import types as JT
 import bench_extra_torch as bxt
 import lexls_tpu_torch as lt
 from lexls_tpu_torch import Structure, initial_activation
-from lexls_tpu_torch.lexlsi import active_set_kwargs
+from lexls_tpu_torch.active_set import active_set_kwargs
 from lexls_tpu_torch.ops import fused as fused_mod
 from lexls_tpu_torch.ops.panel_lqr import _panel_step
 

@@ -253,7 +253,8 @@ def _active_set_pair(prob, params, B, rng, inputs=None, **kw):
     (jax outputs, port result)``; the last three default to an empty log,
     the initial detector and the problem's bounds."""
     from lexls_tpu.ops import fused as jfused
-    from lexls_tpu_torch.lexlsi import _initial_state, active_set_kwargs
+    from lexls_tpu_torch.active_set import active_set_kwargs
+    from lexls_tpu_torch.lexlsi import _initial_state
     from lexls_tpu_torch.ops import fused_active_set
 
     if inputs is None:

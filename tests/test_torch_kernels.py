@@ -22,14 +22,14 @@ import torch
 
 import lexls_tpu_torch as lt
 from lexls_tpu_torch import convert, tracing
-from lexls_tpu_torch.lexlsi import (
+from lexls_tpu_torch.active_set import (
     _form_initial_working_set,
     _form_step,
-    _initial_state,
     _initialize_v0,
     _modify_x_guess,
     active_set_kwargs,
 )
+from lexls_tpu_torch.lexlsi import _initial_state
 from lexls_tpu_torch.oracle import random_inequality_hierarchy
 from lexls_tpu_torch.ops import (
     ActiveSetResult,

@@ -8,8 +8,15 @@ card's ``installed`` phase runs too: ``pip wheel`` from a copy of the tree
 (``pyproject.toml``, ``README.md`` and both packages) in a temporary
 directory, since building in place writes ``build/lib`` and ``*.egg-info``
 into the checkout, then ``pip install --target``; pip never looks at an
-index."""
+index.
 
+The package's import layers are read from its sources with ``ast``: the
+kernels' layer (``ops/``) and the active-set step below it
+(``active_set.py``) import nothing of the solver tiers and their callers,
+no module imports a package module inside a function, and no two modules
+import each other."""
+
+import ast
 import json
 import os
 import pathlib
@@ -32,6 +39,14 @@ torch.set_num_threads(1)
 
 CSRC_FILES = sorted(p.name for p in (ROOT / "lexls_tpu_torch" / "csrc").iterdir()
                     if p.suffix in (".cu", ".cuh"))
+
+PKG = ROOT / "lexls_tpu_torch"
+# module name -> (its source file, whether it is a package's __init__)
+SOURCES = {".".join(("lexls_tpu_torch",) + p.relative_to(PKG).with_suffix("").parts[
+    :-1 if p.name == "__init__.py" else None]): (p, p.name == "__init__.py")
+    for p in sorted(PKG.rglob("*.py"))}
+# what the kernels' layer and the active-set step must not import
+ABOVE_THE_STEP = ("lexlsi", "tracker", "sequence", "parallel", "api", "wset")
 
 
 @pytest.fixture(scope="module")
@@ -140,3 +155,46 @@ def test_build_without_sources_names_csrc(monkeypatch, tmp_path):
         _build.build.cache_clear()
     assert not (tmp_path / "out").exists()
 
+
+def _package_imports(name):
+    """[(imported package module, inside a function)] of module ``name``:
+    ``from a import b`` counts ``a.b`` where that is a module, else ``a``."""
+    path, is_init = SOURCES[name]
+    package = name if is_init else name.rpartition(".")[0]
+    found = []
+
+    def visit(node, in_function):
+        if isinstance(node, ast.Import):
+            found.extend((a.name, in_function) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                up = package.split(".")[:len(package.split(".")) - node.level + 1]
+                base = ".".join(up + ([node.module] if node.module else []))
+            subs = [f"{base}.{a.name}" for a in node.names if f"{base}.{a.name}" in SOURCES]
+            found.extend((t, in_function) for t in (subs or [base]))
+        inner = in_function or isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                                 ast.Lambda))
+        for child in ast.iter_child_nodes(node):
+            visit(child, inner)
+
+    visit(ast.parse(path.read_text()), False)
+    return [(t, f) for t, f in found if t == "lexls_tpu_torch" or t.startswith("lexls_tpu_torch.")]
+
+
+@pytest.mark.parametrize("name", sorted(SOURCES))
+def test_module_keeps_its_layer(name):
+    """The module's imports keep the port's layers: under ``ops/`` and in
+    ``active_set`` nothing of the tiers or their callers; no package
+    module imported inside a function (an import that dodges a cycle);
+    and no module it imports imports it back (``sequence`` and
+    ``parallel.batch``, ``lexlsi`` and ``ops``, ...)."""
+    imports = _package_imports(name)
+    if name.startswith("lexls_tpu_torch.ops") or name == "lexls_tpu_torch.active_set":
+        above = [t for t, _ in imports if t.split(".")[1:2] and t.split(".")[1] in ABOVE_THE_STEP]
+        assert not above, f"{name} imports {above}, a layer above the kernels"
+    inside = [t for t, in_function in imports if in_function]
+    assert not inside, f"{name} imports {inside} inside a function"
+    back = [t for t, _ in imports if t != name and t in SOURCES
+            and name in (u for u, _ in _package_imports(t))]
+    assert not back, f"{name} and {back} import each other"

@@ -22,7 +22,7 @@ import torch
 
 import lexls_tpu_torch as lt
 from lexbench.harness import check, traffic
-from lexls_tpu_torch.lexlsi import active_set_kwargs
+from lexls_tpu_torch.active_set import active_set_kwargs
 from lexls_tpu_torch.ops.fused import fused_layout, waves
 from lexls_tpu_torch.sequence import _device_initial_activation
 

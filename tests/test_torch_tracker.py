@@ -27,6 +27,7 @@ from lexls_tpu.parallel import batched_initial_arrays
 import lexls_tpu_torch as lt
 from lexls_tpu_torch import convert
 from lexls_tpu_torch import tracker as ttrk
+from lexls_tpu_torch.active_set import _select_removal, active_set_kwargs, kmax
 from lexls_tpu_torch.ops.tri import tri_inv_upper
 from lexls_tpu_torch.sequence import _device_initial_activation
 
@@ -196,8 +197,8 @@ def test_select_removal_matches_jax(simple, deact_first):
                                  tol_wrong_sign_lambda=1e-8, tol_correct_sign_lambda=1e-12)
     wf, wrow = jtrk._select_removal(jnp.asarray(lam), jnp.asarray(ct), jnp.asarray(st),
                                     jnp.asarray(Agm), jnp.asarray(fixed), js, params)
-    gf, grow, _ = ttrk._select_removal(_t(lam), _t(ct), _t(st), _t(Agm), _t(fixed), ts,
-                                    convert.params_from(params))
+    gf, grow, _ = _select_removal(_t(lam), _t(ct), _t(st), _t(Agm), _t(fixed),
+                                  **active_set_kwargs(ts, convert.params_from(params), "cpu"))
     _equal(gf, wf)
     _equal(grow, wrow)
     assert bool(gf.any()) and not bool(gf[:3].any())
@@ -208,7 +209,8 @@ def test_default_cert_tol_and_kmax_match_jax():
                      (torch.bfloat16, jnp.bfloat16)):
         assert ttrk.default_cert_tol(tdt) == jtrk.default_cert_tol(jdt)
     prob = jgen.random_inequality_hierarchy(np.random.default_rng(0), 5, [2, 9, 3])
-    assert ttrk.kmax_of(lt.Structure.of(prob)) == jtrk.kmax_of(jli.Structure.of(prob)) == 5
+    ts = lt.Structure.of(prob)
+    assert kmax(ts.lexlse_dims, ts.n_var) == jtrk.kmax_of(jli.Structure.of(prob)) == 5
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,8 @@ import lexls_tpu_torch as lt
 from lexls_tpu_torch import convert
 from lexls_tpu_torch import regularization as treg
 from lexls_tpu_torch import tracker as ttrk
-from lexls_tpu_torch.lexlsi import _factorize_masked, _masked_general, _verify_with_f
+from lexls_tpu_torch.active_set import _masked_general
+from lexls_tpu_torch.lexlsi import _factorize_masked, _verify_with_f
 from lexls_tpu_torch.ops import factorize_fast_batched
 from lexls_tpu_torch.sequence import _device_initial_activation
 
@@ -54,7 +55,7 @@ def _fixed_point(st, A, lb, ub, reg, struct, params):
     """One exact iteration from every endpoint, with the status reset:
     (status, ctr_type, v) after it."""
     s = dataclasses.replace(st, status=torch.full_like(st.status, -1))
-    Ag, bg, fm, fv = _masked_general(A, lb, ub, s.ctr_type, struct)
+    Ag, bg, fm, fv = _masked_general(A, lb, ub, s.ctr_type, d0=struct.d0, var_idx=struct.var_idx)
     f = _factorize_masked(Ag, bg, fm, fv, struct, params, reg)
     s1 = _verify_with_f(s, A, Ag, f, torch.ones_like(st.status, dtype=torch.bool), struct,
                         params)
@@ -150,7 +151,8 @@ def test_reg_tracked_simple_bounds_matches_exact_tier():
                                  v0_specified=False, **kw)
     check(cold_t, cold, _t(A0))
 
-    Ag, bg, fm, fv = _masked_general(_t(A0), lb, ub, cold.ctr_type, struct)
+    Ag, bg, fm, fv = _masked_general(_t(A0), lb, ub, cold.ctr_type, d0=struct.d0,
+                                     var_idx=struct.var_idx)
     carried = ttrk.carried_from_lexqr(_factorize_masked(Ag, bg, fm, fv, struct, params, reg),
                                       struct)
     ct, st_, ns = _device_initial_activation(_t(A1), lb, ub, cold.ctr_type, struct)
@@ -189,7 +191,8 @@ def test_reg_tracked_warm_step_matches_jax():
                                  params=tparams, x_guess_specified=False, v0_specified=False)
     assert bool((cold.status == 0).any())
     # the carried factorization of the final working sets, in both packages
-    Ag, bg, fm, fv = _masked_general(_t(A0), _t(lb), _t(ub), cold.ctr_type, struct)
+    Ag, bg, fm, fv = _masked_general(_t(A0), _t(lb), _t(ub), cold.ctr_type, d0=struct.d0,
+                                     var_idx=struct.var_idx)
     car_t = ttrk.carried_from_lexqr(_factorize_masked(Ag, bg, fm, fv, struct, tparams, reg),
                                     struct)
     car_j = jax.jit(lambda *z: jtrk.carried_from_lexqr(jax.vmap(
