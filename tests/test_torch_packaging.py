@@ -14,9 +14,13 @@ The package's import layers are read from its sources with ``ast``: the
 kernels' layer (``ops/``) and the active-set step below it
 (``active_set.py``) import nothing of the solver tiers and their callers,
 no module imports a package module inside a function, and no two modules
-import each other."""
+import each other.
+
+The test tree's one root ``conftest.py`` marks ``slow`` exactly the cases
+of ``tests/test_tracker.py`` it lists, and no more than 20."""
 
 import ast
+import importlib.util
 import json
 import os
 import pathlib
@@ -198,3 +202,32 @@ def test_module_keeps_its_layer(name):
     back = [t for t, _ in imports if t != name and t in SOURCES
             and name in (u for u, _ in _package_imports(t))]
     assert not back, f"{name} and {back} import each other"
+
+
+def _tracker_ids(marker_expr):
+    """The ids that ``-m marker_expr`` collects from ``tests/test_tracker.py``."""
+    out = subprocess.run([sys.executable, "-m", "pytest", "--collect-only", "-q", "-o", "addopts=",
+                          "-p", "no:cacheprovider", "-m", marker_expr, "tests/test_tracker.py"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode in (0, 5), out.stdout + out.stderr  # 5: every case deselected
+    return [line for line in out.stdout.splitlines() if "::" in line]
+
+
+def test_tracker_slow_marks_are_the_root_conftest_list():
+    """``-m slow`` collects exactly the root ``conftest.py``'s
+    ``TRACKER_SLOW``, so a renamed or misspelt entry fails here instead of
+    silently running in tier-1; the list holds at most 20 cases, each once,
+    each a case of a parametrised function that keeps an unmarked case."""
+    spec = importlib.util.spec_from_file_location("_root_conftest", ROOT / "conftest.py")
+    root_conftest = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root_conftest)
+    listed = root_conftest.TRACKER_SLOW
+    assert len(listed) <= 20 and len(set(listed)) == len(listed)
+    collected = _tracker_ids("slow")
+    missing = sorted(set(listed) - set(collected))
+    assert not missing, f"tests/test_tracker.py collects no case named {missing}"
+    assert sorted(collected) == sorted(listed)
+    kept = {i.partition("[")[0] for i in _tracker_ids("not slow")}
+    for case in listed:
+        function, bracket, _ = case.partition("[")
+        assert bracket and function in kept, f"{case}: its function keeps no unmarked case"
