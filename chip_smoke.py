@@ -138,7 +138,16 @@ Phases:
      outside the checkout with a fresh ``XDG_CACHE_HOME``, the kernels
      built from the installed sources into that cache and the fused warm
      sequence run at B=384, T=3, held against the same call from the
-     checkout.  ``python3 chip_smoke.py installed`` runs this phase alone.
+     checkout.  ``python3 chip_smoke.py installed`` runs this phase alone;
+ 19. kernel B2 at the benchmark's two float32 batches, where its launch
+     bound and its layout set how many blocks an SM holds: the cold batch
+     of ``ik100_f32.cold_b10240`` (B=10,240) and the warm batch (B=384),
+     each with its gauges (blocks per SM, waves, shared memory a block,
+     registers and local memory a thread) and against its plain version,
+     every status and counter equal (the cold batch paused after SH_CAP
+     iterations); the warm batch also with the LOD forced into device
+     memory.  ``python3 chip_smoke.py resident`` runs
+     this phase alone.
 
 Prints one JSON line with the per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -347,7 +356,8 @@ def _test01_problem(dev, Bn, config=None):
 
 def _b2_gauges(fn):
     """B2's gauges of the launch in ``fn``, recorded alone: its resident
-    blocks per SM, the waves its batch takes and its shared memory a block."""
+    blocks per SM, the waves its batch takes, its shared memory a block and
+    the registers and local-memory bytes a thread of its variant."""
     from lexls_tpu_torch import tracing
 
     tracing.reset()
@@ -355,7 +365,8 @@ def _b2_gauges(fn):
         fn()
     torch.cuda.synchronize()
     g = tracing.snapshot().gauges
-    return ", ".join(f"{k} {g.get(k)}" for k in ("b2.blocks_per_sm", "b2.waves", "b2.smem_bytes"))
+    return ", ".join(f"{k} {g.get(k)}" for k in ("b2.blocks_per_sm", "b2.waves", "b2.smem_bytes",
+                                                 "b2.regs", "b2.local_bytes"))
 
 
 def _phase1(A, lbs, ubs, struct, params, x=None, ct=None):
@@ -2440,6 +2451,60 @@ def _b2_against_plain(label, got, want, misses):
         misses.append(f"{label}: R err {kmax:.3e} over a tenth of the neighbours' {nmed:.3e}")
 
 
+def check_b2_resident(dev):
+    """Kernel B2 in float32 at the benchmark's cold batch (B=SH_B, the bench
+    problem's cold phase-1 state, as ``solve_core_fused`` launches it) and
+    at its warm batch (B=384, step 1 from the cold answer), where the launch
+    bound and the layout decide how many blocks an SM holds: each launch's
+    gauges, then the launch against the plain version by
+    :func:`_b2_against_plain` (every status and counter equal): at B=SH_B
+    the cold solve paused after SH_CAP iterations (as the sharded tail
+    check: whole float32 cold solves part from the plain version's by
+    rounding) on the last SH_TAIL instances, which run in the last rounds
+    of blocks, and at B=384 the whole warm solve, once in the
+    layout the rule picks (the LOD in shared memory) and once with the LOD
+    forced into device memory, so that both variants of the kernel read
+    the state the layout leaves in shared memory and in device memory."""
+    from lexls_tpu_torch.active_set import active_set_kwargs
+    from lexls_tpu_torch.lexlsi import Structure
+    from lexls_tpu_torch.ops import fused as fused_mod
+    from lexls_tpu_torch.ops import fused_active_set, fused_active_set_ref
+
+    misses = []
+    prob, params, base, drifts, lb, ub = _bench_problem(torch.float32, dev, SH_B)
+    struct = Structure.of(prob)
+    kw = active_set_kwargs(struct, params, dev)
+    lbs, ubs = lb.expand(SH_B, -1).contiguous(), ub.expand(SH_B, -1).contiguous()
+    A0 = (base + drifts[0]).contiguous()
+    cold = _state_args(A0, _phase1(A0, lbs, ubs, struct, params))
+    print(f"[B2 resident] cold B={SH_B} gauges: "
+          + _b2_gauges(lambda: fused_active_set(*cold, **kw)))
+    got = fused_active_set(*cold, **kw)
+    print(f"[B2 resident] cold B={SH_B}: statuses {torch.bincount(got.status + 1).tolist()} "
+          f"(-1,0,1,2 counts), iterations mean {float(got.it.float().mean()):.4f}")
+    tail = slice(SH_B - SH_TAIL, SH_B)
+    paused = fused_active_set(*cold, iter_cap=SH_CAP, **kw)
+    want = fused_active_set_ref(*(a[tail] for a in cold), iter_cap=SH_CAP, **kw)
+    torch.cuda.synchronize()
+    _b2_against_plain(f"[B2 resident] cold B={SH_B} iter_cap={SH_CAP}, instances "
+                      f"{SH_B - SH_TAIL}..{SH_B - 1}",
+                      fused_mod.ActiveSetResult(*(f[tail] for f in paused)), want, misses)
+
+    warm_rows = slice(0, B)
+    A1 = (base[warm_rows] + drifts[1]).contiguous()
+    warm = _state_args(A1, _phase1(A1, lbs[warm_rows], ubs[warm_rows], struct, params,
+                                   got.x[warm_rows].contiguous(),
+                                   got.ctr_type[warm_rows].contiguous()))
+    want = fused_active_set_ref(*warm, **kw)
+    for label, lod_shared in (("LOD in shared memory", None), ("LOD in device memory", False)):
+        print(f"[B2 resident] warm B={B}, {label}, gauges: "
+              + _b2_gauges(lambda: fused_active_set(*warm, lod_shared=lod_shared, **kw)))
+        _b2_against_plain(f"[B2 resident] warm B={B}, {label}",
+                          fused_active_set(*warm, lod_shared=lod_shared, **kw), want, misses)
+    if misses:
+        raise SystemExit("[B2 resident] " + "; ".join(misses))
+
+
 def _tail_checks(dev, cold, reg, struct, params, short, misses, label="sharded"):
     """B1 and B2 on the last SH_TAIL of the cold instances against their plain
     versions on the same rows of the same inputs, by check_panel's and
@@ -3682,6 +3747,7 @@ def main():
         "config2": lambda: run_config2(dev, report),
         "config2_chain": lambda: run_config2_chain(dev, report),
         "installed": lambda: run_installed(dev, report),
+        "resident": lambda: check_b2_resident(dev),
     }
     # with phase names as arguments, only those run and no result is printed
     # (for work on one kernel); with none, as the check runs it, all do

@@ -14,20 +14,30 @@
 // call takes as long as its longest instance.  An iteration is a chain of
 // small dependent stages (about 120 pivot steps at the bench shape, then
 // the Gauss, substitution and multiplier stages) run by the four warps of
-// one block, three blocks to an SM: the kernel is bound by the latency of
-// that chain and by the instructions its few warps can issue in order,
-// neither by bytes nor by operations.  The design therefore shortens the
-// chain's links and leaves nothing to a single warp that four can do:
-//  * the instance's whole state lives in shared memory for the length of
-//    the call: the masked subproblem (LOD), taus, column norms, the
-//    permutation, multipliers, and x, v, Ax, the step, the working set and
-//    the bounds.  The kernel reads the caller's state once at entry and
-//    writes its own outputs once at exit; no input is written.  The
-//    wrapper computes the layout (ops/fused.py::fused_layout) and hands the
-//    kernel the byte offsets.  The LOD's row stride is odd, so a walk along
-//    a row and a gather down a column both touch 32 different banks.  Where
-//    the state does not fit the 227 KB a thread block may use, the LOD
-//    alone stays in device memory (`work`): the kernel is compiled for
+// one block, three or four blocks to an SM: the kernel is bound by the
+// latency of that chain and by the instructions its few warps can issue in
+// order, neither by bytes nor by operations, so that the more blocks an SM
+// holds at once, the more instances advance together.  In float32 the launch
+// bound asks for four blocks (128 registers a thread) and the layout's
+// bytes fit four blocks of the bench shape; the register-tiled stages are
+// sized for that cap (kChunk, and the pivot step's column update holds at
+// most 16 rows of the pivot column), since spilling or serializing there
+// would cost a block more than the fourth block gains.  The design
+// therefore shortens the chain's links and leaves nothing to a single warp
+// that four can do:
+//  * the instance's state lives in shared memory for the length of the
+//    call: the masked subproblem (LOD), taus, column norms, the
+//    permutation, multipliers, and x, v, Ax, the step and the working set.
+//    The kernel reads the caller's state once at entry and writes its own
+//    outputs once at exit; no input is written.  What an iteration reads
+//    once a row at most stays in device memory: the bounds (copied to
+//    their outputs at entry and relaxed there when cycling handling is on)
+//    and the stamps (copied to their output at entry and updated there).
+//    The wrapper computes the layout (ops/fused.py::fused_layout) and hands
+//    the kernel the byte offsets.  The LOD's row stride is odd, so a walk
+//    along a row and a gather down a column both touch 32 different banks.
+//    Where the state does not fit the 227 KB a thread block may use, the
+//    LOD alone stays in device memory (`work`): the kernel is compiled for
 //    either place, so that the compiler knows the address space of every
 //    access (a pointer that may be either costs every load twice);
 //  * A is read from device memory (it stays in L2) when an iteration builds
@@ -67,7 +77,7 @@
 // type, step length or multiplier, total rank) is known identically to
 // every thread, so thread 0 appends the entry to the output log by plain
 // indexing at log_len (the block copies the incoming log there at entry)
-// and relaxes the one bound of a detected cycle in shared memory.  The log
+// and relaxes the one bound of a detected cycle in its output.  The log
 // length and the detector's four integers are instance scalars like the
 // counters.
 //
@@ -91,13 +101,18 @@
 namespace lexls {
 
 constexpr int kFusedThreads = kStepWarps * kWarp;  // 128
-// Pivot columns of a level that the Gauss stages hold in registers at a time.
-constexpr int kChunk = 32;
+// Pivot columns of a level that the Gauss stages hold in registers at a
+// time: 16 in float32, where the launch bound leaves 128 registers a thread.
+template <typename T>
+constexpr int kChunk = sizeof(T) == 4 ? 16 : 32;
 // The same for the forward sweep that computes the multipliers.
 constexpr int kChunkL = 16;
 // Rows that a warp works on together in the matrix-vector stages.
 constexpr int kRows = 4;
-constexpr int kInactive = 0, kActiveLb = 1, kActiveUb = 2, kActiveEq = 3, kCorrectSign = 4;
+constexpr int kInactive = 0, kActiveLb = 1, kActiveUb = 2, kActiveEq = 3;
+// CORRECT_SIGN: a flag added to a row's type in ct while the removal
+// selection runs; the working-set update takes it off again.
+constexpr int kCorrectSign = 8;
 constexpr int kUnknown = -1, kSolved = 0, kSolvedCycling = 1;
 constexpr int kOpUndefined = 0, kOpAdd = 1, kOpRemove = 2;
 
@@ -129,8 +144,8 @@ enum FusedReal { kRealTolLd, kRealTolFeas, kRealTolWrong, kRealTolCorrect, kReal
                  kFusedReals };
 enum FusedRegion {
   kRegLod, kRegHh, kRegCn, kRegU, kRegXdx, kRegLam, kRegRhsAll, kRegFval, kRegX, kRegV,
-  kRegAx, kRegDv, kRegAdx, kRegLb, kRegUb, kRegRed, kRegStep,
-  kRegPos, kRegColAt, kRegSense, kRegCt, kRegSt, kRegLvlFc, kRegLvlRank, kRegFmask,
+  kRegAx, kRegDv, kRegAdx, kRegRed, kRegStep,
+  kRegPos, kRegColAt, kRegCt, kRegLvlFc, kRegLvlRank, kRegFmask,
   kFusedRegions
 };
 
@@ -282,12 +297,12 @@ __device__ __noinline__ int factorize(const FactorCtx<T> x) {
     for (int item = tid; item < ncols * groups; item += nt) {
       const int g = item / ncols, jc = item - g * ncols;
       const int c = jc < n - end ? col_at[end + jc] : n;
-      for (int cb = 0; cb < rank; cb += kChunk) {
-        const int nc = rank - cb < kChunk ? rank - cb : kChunk;
-        T Rc[kChunk];
-        int cc[kChunk];  // this chunk's pivot columns
+      for (int cb = 0; cb < rank; cb += kChunk<T>) {
+        const int nc = rank - cb < kChunk<T> ? rank - cb : kChunk<T>;
+        T Rc[kChunk<T>];
+        int cc[kChunk<T>];  // this chunk's pivot columns
 #pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
+        for (int j = 0; j < kChunk<T>; ++j) {
           cc[j] = cl[cb + (j < nc ? j : 0)];
           Rc[j] = j < nc ? Rrow[(cb + j) * ld + c] : T(0);
         }
@@ -296,7 +311,7 @@ __device__ __noinline__ int factorize(const FactorCtx<T> x) {
           T* row = lod + (size_t)r * ld;
           T s = 0;
 #pragma unroll
-          for (int j = 0; j < kChunk; ++j) s += row[cc[j]] * Rc[j];
+          for (int j = 0; j < kChunk<T>; ++j) s += row[cc[j]] * Rc[j];
           row[c] -= s;
         }
       }
@@ -320,7 +335,7 @@ __device__ __forceinline__ void copy_async(T* dst_shared, const T* src) {
 // kLodShared: the LOD lives in shared memory (the compiler then knows the
 // address space of every access to it), else in `work`.
 template <typename T, bool kLodShared>
-__global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 3)
+__global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 4)
     fused_kernel(FusedArgs<T> a) {
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid % kWarp, wid = tid / kWarp, nw = nt / kWarp;
@@ -351,20 +366,24 @@ __global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 3)
   T* Ax = (T*)(smem + a.off[kRegAx]);          // (m)
   T* dv = (T*)(smem + a.off[kRegDv]);          // (m)
   T* Adx = (T*)(smem + a.off[kRegAdx]);        // (m)
-  T* lb = (T*)(smem + a.off[kRegLb]);          // (m)
-  T* ub = (T*)(smem + a.off[kRegUb]);          // (m)
   void* red = smem + a.off[kRegRed];           // block_min_pair's scratch
   StepScratch<T>* sc = (StepScratch<T>*)(smem + a.off[kRegStep]);
   int* pos = (int*)(smem + a.off[kRegPos]);        // (n) column -> position
   int* col_at = (int*)(smem + a.off[kRegColAt]);   // (n) position -> column
-  int* sense = (int*)(smem + a.off[kRegSense]);    // (m) types with CORRECT_SIGN marks
   int* ct = (int*)(smem + a.off[kRegCt]);          // (m) working set
-  int* st = (int*)(smem + a.off[kRegSt]);          // (m) stamps
   int* lvl_fc = (int*)(smem + a.off[kRegLvlFc]);   // (p) first position of each level
   int* lvl_rank = (int*)(smem + a.off[kRegLvlRank]);  // (p) rank of each level
   int* fmask = (int*)(smem + a.off[kRegFmask]);    // (n) 1 where the variable is fixed (d0 > 0)
 
-  // ---- entry: the caller's state into shared memory
+  // (m) in device memory: the bounds, read in place unless cycling handling
+  // may relax them (their outputs exist), and the stamps, in their output
+  const bool relaxable = a.out[kOutLb] != nullptr;
+  T* lb = relaxable ? slice<T>(a.out[kOutLb], b, m) : (T*)slice<const T>(a.in[kInLb], b, m);
+  T* ub = relaxable ? slice<T>(a.out[kOutUb], b, m) : (T*)slice<const T>(a.in[kInUb], b, m);
+  int* st = slice<int>(a.out[kOutSt], b, m);
+
+  // ---- entry: the caller's state into shared memory (and the stamps and
+  // relaxable bounds into their outputs)
   {
     const T* gx = slice<const T>(a.in[kInX], b, n);
     const T* gv = slice<const T>(a.in[kInV], b, m);
@@ -380,8 +399,10 @@ __global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 3)
     for (int i = tid; i < m; i += nt) {
       v[i] = gv[i];
       Ax[i] = gAx[i];
-      lb[i] = glb[i];
-      ub[i] = gub[i];
+      if (relaxable) {
+        lb[i] = glb[i];
+        ub[i] = gub[i];
+      }
       ct[i] = gct[i];
       st[i] = gst[i];
       dv[i] = Adx[i] = T(0);
@@ -586,7 +607,6 @@ __global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 3)
       T s[kRows];
 #pragma unroll
       for (int q = 0; q < kRows; ++q) s[q] = 0;
-#pragma unroll 4
       for (int c = lane; c < n; c += kWarp) {
         const T dxc = dx[c];
 #pragma unroll
@@ -711,20 +731,20 @@ __global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 3)
       }
 
       // removal selection: the first objective with a wrong-sign
-      // multiplier commits; CORRECT_SIGN marks only affect later ones.
-      // One reduction per objective over (value, key) pairs: the oldest
-      // stamp, ties to the smallest row (deact_first), or the smallest
-      // multiplier, ties to the smallest visit priority, then row
-      for (int i = tid; i < m; i += nt) sense[i] = ct[i];
+      // multiplier commits; CORRECT_SIGN marks (on ct, by the thread that
+      // owns the row) only affect later ones.  One reduction per objective
+      // over (value, key) pairs: the oldest stamp, ties to the smallest row
+      // (deact_first), or the smallest multiplier, ties to the smallest
+      // visit priority, then row
       for (int j = 0; j < p && !found; ++j) {
         T bv = inf;
         long long bk = LLONG_MAX;
         for (int i = tid; i < m; i += nt) {
           const T val = lam[j * m + i];
-          const T ai = ct[i] == kActiveLb ? -val : val;
-          const int sn = sense[i];
-          const bool consider = elig[j * m + i] != 0 && (sn == kActiveLb || sn == kActiveUb);
-          if (consider && ai > a.tol_correct) sense[i] = kCorrectSign;
+          const int t = ct[i];  // a marked row is not considered, so its sign is not read
+          const T ai = t == kActiveLb ? -val : val;
+          const bool consider = elig[j * m + i] != 0 && (t == kActiveLb || t == kActiveUb);
+          if (consider && ai > a.tol_correct) ct[i] = t + kCorrectSign;
           if (consider && ai < -a.tol_wrong) {
             if (a.deact_first) take_min_pair(bv, bk, T(0), ((long long)st[i] << 32) | (long long)i);
             else take_min_pair(bv, bk, ai, ((long long)prio[j * m + i] << 32) | (long long)i);
@@ -741,9 +761,9 @@ __global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 3)
     const bool do_remove = !blocking && found;
     const bool solved = !blocking && !found;
     // the type the removed row had, read before the update overwrites it
-    const int rm_type = do_remove ? ct[sel_row] : -1;
+    const int rm_type = do_remove ? ct[sel_row] % kCorrectSign : -1;
 
-    // ---- working-set update, step, counters
+    // ---- working-set update (CORRECT_SIGN marks off), step, counters
     __syncthreads();
     for (int i = tid; i < m; i += nt) {
       if (blocking && i == brow) {
@@ -752,6 +772,8 @@ __global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 3)
       } else if (do_remove && i == sel_row) {
         ct[i] = kInactive;
         st[i] = -1;
+      } else if (ct[i] >= kCorrectSign) {
+        ct[i] -= kCorrectSign;
       }
     }
     const T afl = alpha > T(0) ? alpha : T(0);
@@ -846,10 +868,7 @@ __global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 3)
     T* gAx = slice<T>(a.out[kOutAx], b, m);
     T* gdv = slice<T>(a.out[kOutDv], b, m);
     T* gAdx = slice<T>(a.out[kOutAdx], b, m);
-    T* glb = slice<T>(a.out[kOutLb], b, m);
-    T* gub = slice<T>(a.out[kOutUb], b, m);
     int* gct = slice<int>(a.out[kOutCt], b, m);
-    int* gst = slice<int>(a.out[kOutSt], b, m);
     for (int c = tid; c < n; c += nt) {
       gx[c] = x[c];
       gdx[c] = xdx[c];
@@ -860,11 +879,6 @@ __global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 3)
       gdv[i] = dv[i];
       gAdx[i] = Adx[i];
       gct[i] = ct[i];
-      gst[i] = st[i];
-      if (glb) {
-        glb[i] = lb[i];
-        gub[i] = ub[i];
-      }
     }
   }
   if (tid == 0) {
@@ -883,10 +897,14 @@ __global__ void __launch_bounds__(kFusedThreads, sizeof(T) == 8 ? 2 : 3)
   }
 }
 
+// What ints[kIntQuery] asks of the kernel instead of a launch.
+enum FusedQuery { kQueryNone, kQueryBlocksPerSm, kQueryRegs, kQueryLocalBytes };
+
 // `in`, `out`, `off`, `ints` and `reals` are host arrays in the order of
-// the enums above.  With ints[kIntQuery] != 0 nothing is launched: the
-// entry returns the resident blocks per SM at this shared-memory size (or
-// minus the CUDA error).
+// the enums above.  With ints[kIntQuery] != kQueryNone nothing is
+// launched: the entry returns the resident blocks per SM at this
+// shared-memory size, or the registers or the local-memory bytes a thread
+// of the kernel (or minus the CUDA error).
 template <typename T, bool kLodShared>
 int launch_fused(const FusedArgs<T>& a, int B, size_t smem_bytes, int query, cudaStream_t stream) {
   static size_t configured = 0;
@@ -896,11 +914,17 @@ int launch_fused(const FusedArgs<T>& a, int B, size_t smem_bytes, int query, cud
     cudaGetLastError();
     return query ? -(int)err : (int)err;
   }
-  if (query) {
+  if (query == kQueryBlocksPerSm) {
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFusedThreads,
                                                         smem_bytes);
     return err == cudaSuccess ? blocks : -(int)err;
+  }
+  if (query) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return -(int)err;
+    return query == kQueryRegs ? attr.numRegs : (int)attr.localSizeBytes;
   }
   if (B > 0) kernel<<<B, kFusedThreads, smem_bytes, stream>>>(a);
   return (int)cudaGetLastError();

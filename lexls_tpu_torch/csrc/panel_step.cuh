@@ -193,11 +193,13 @@ __device__ void panel_init_norms(const Panel<T>& P, int ci, StepCarry& carry) {
 // same entry: a broadcast); col: this column, both from the diagonal row
 // down.  Returns the updated diagonal-row entry and
 // the column's candidacy values for the next step.
-template <typename T, int CH>
+template <typename T, int CH, bool LEAN>
 __device__ __forceinline__ void update_column(const T* a, T* col, int ld, int nl, T tau, T rden,
                                               T& prow, T& c0, T& tail) {
-  // the pivot column goes to registers too where both fit comfortably
-  constexpr bool kHoldA = sizeof(T) * CH <= 128;
+  // the pivot column goes to registers too where both fit comfortably: in
+  // kernel B2 (LEAN), whose float32 launch bound leaves 128 registers a
+  // thread, up to 16 rows
+  constexpr bool kHoldA = LEAN ? CH <= 16 : sizeof(T) * CH <= 128;
   T x[CH], av[kHoldA ? CH : 1];
 #pragma unroll
   for (int i = 0; i < CH; ++i) x[i] = i < nl ? col[i * ld] : T(0);
@@ -293,13 +295,13 @@ __device__ bool panel_step(const Panel<T>& P, int counter, int& ci, StepCarry& c
     T* col = P.blk + counter * ld + c;
     T prow, d0, tail;
     if (nl <= 8) {
-      update_column<T, 8>(a, col, ld, nl, tau, rden, prow, d0, tail);
+      update_column<T, 8, LEAN>(a, col, ld, nl, tau, rden, prow, d0, tail);
     } else if (nl <= 16) {
-      update_column<T, 16>(a, col, ld, nl, tau, rden, prow, d0, tail);
+      update_column<T, 16, LEAN>(a, col, ld, nl, tau, rden, prow, d0, tail);
     } else if (nl <= 24) {
-      update_column<T, 24>(a, col, ld, nl, tau, rden, prow, d0, tail);
+      update_column<T, 24, LEAN>(a, col, ld, nl, tau, rden, prow, d0, tail);
     } else if (nl <= 32) {
-      update_column<T, 32>(a, col, ld, nl, tau, rden, prow, d0, tail);
+      update_column<T, 32, LEAN>(a, col, ld, nl, tau, rden, prow, d0, tail);
     } else {
       T sraw = 0;
       for (int i = 1; i < nl; ++i) sraw += a[i * ld] * col[i * ld];

@@ -47,8 +47,8 @@ from ..active_set import (
 )
 from ..types import TerminationStatus
 from . import _build
-from .panel_lqr import (_STEP_BYTES, _SUFFIX, SharedLayout, _check_cuda_args, _int_array,
-                        _panel_step, odd_stride, pack_regions)
+from .panel_lqr import (_SUFFIX, SharedLayout, _check_cuda_args, _int_array,
+                        _panel_step, _step_bytes, odd_stride, pack_regions)
 
 
 class ActiveSetResult(NamedTuple):
@@ -340,8 +340,11 @@ FUSED_INTS = ("B", "m", "n", "p", "d0", "kmax", "ld", "lod_shared", "smem_bytes"
               "deact_first", "iter_cap", "log_cap", "cycling", "cyc_max", "query")
 FUSED_REALS = ("tol_ld", "tol_feas", "tol_wrong", "tol_correct", "cyc_relax")
 FUSED_REGIONS = ("lod", "hh", "cn", "u", "xdx", "lam", "rhs_all", "fval", "x", "v", "Ax", "dv",
-                 "Adx", "lb", "ub", "red", "step", "pos", "col_at", "sense", "ct", "st",
-                 "lvl_fc", "lvl_rank", "fmask")
+                 "Adx", "red", "step", "pos", "col_at", "ct", "lvl_fc", "lvl_rank", "fmask")
+# What ints["query"] asks of the entry instead of a launch
+# (csrc/fused.cu::FusedQuery): resident blocks per SM, registers a thread,
+# local-memory bytes a thread.
+QUERY_BLOCKS_PER_SM, QUERY_REGS, QUERY_LOCAL_BYTES = 1, 2, 3
 
 
 @functools.lru_cache(maxsize=256)
@@ -353,9 +356,12 @@ def fused_layout(m: int, n: int, p: int, d0: int, dmax: int, dtype,
     largest level), basic solution / step, multipliers of every objective
     over all rows, the λ back-propagation of objectives 1.., the fixed
     variables' values and flags (``d0 > 0`` only), x, v, Ax, dv, Adx, the
-    bounds, the reduction scratch and the step's scalars, then the
-    permutation and its inverse, the marked types, the working set, the
-    stamps and each level's first position and rank.
+    reduction scratch and the step's scalars (sized by the dtype), then the
+    permutation and its inverse, the working set (which also carries the
+    removal selection's CORRECT_SIGN marks) and each level's first position
+    and rank.  The bounds and the stamps, which an iteration reads once a
+    row at most, stay in device memory: so four blocks of the bench shape
+    (m=120, n=100, p=4, 30-row levels) fit an SM in float32.
 
     The rule, stated here and nowhere else: the LOD lives in shared memory
     exactly when all of this fits what a thread block may use
@@ -365,9 +371,9 @@ def fused_layout(m: int, n: int, p: int, d0: int, dmax: int, dtype,
     es = torch.empty(0, dtype=dtype).element_size()
     mg, ld = m - d0, odd_stride(n)
     fixed = n if d0 else 0
-    reals = (mg * ld, mg, n, dmax, n, p * m, (p - 1) * n, fixed, n, m, m, m, m, m, m)
-    ints = (n, n, m, m, m, p, p, fixed)
-    sizes = (*(k * es for k in reals), (_THREADS // 32) * (8 + es), _STEP_BYTES,
+    reals = (mg * ld, mg, n, dmax, n, p * m, (p - 1) * n, fixed, n, m, m, m, m)
+    ints = (n, n, m, p, p, fixed)
+    sizes = (*(k * es for k in reals), (_THREADS // 32) * (8 + es), _step_bytes(es),
              *(k * 4 for k in ints))
     shared, offsets, sizes, nbytes, all_shared = pack_regions(sizes, 0, lod_shared)
     return SharedLayout(shared, ld, offsets, sizes, nbytes, all_shared)
@@ -394,14 +400,20 @@ _OUT_ARRAY = _P * len(FUSED_OUTPUTS)
 _REAL_ARRAY = ctypes.c_double * len(FUSED_REALS)
 
 
-def fused_occupancy(lay: SharedLayout, dtype) -> int:
-    """Resident blocks per SM that the card reports for kernel B2 at this
-    layout's shared-memory size (needs the card)."""
+def _query(lay: SharedLayout, dtype, query: int) -> int:
+    """What the card reports of kernel B2's variant for this layout (LOD in
+    shared or in device memory) at its shared-memory size (needs the card)."""
     name, fn = _fused_entry(dtype)
-    got = fn(*_entry_args((), (), lay, dict(query=1), (), None))
+    got = fn(*_entry_args((), (), lay, dict(query=query), (), None))
     if got < 0:
         raise RuntimeError(f"{name}: CUDA error {-got} at {lay.nbytes} bytes of shared memory")
     return got
+
+
+def fused_occupancy(lay: SharedLayout, dtype) -> int:
+    """Resident blocks per SM that the card reports for kernel B2 at this
+    layout's shared-memory size (needs the card)."""
+    return _query(lay, dtype, QUERY_BLOCKS_PER_SM)
 
 
 @functools.lru_cache(maxsize=None)
@@ -409,6 +421,15 @@ def _blocks_per_sm(lay: SharedLayout, dtype) -> int:
     """:func:`fused_occupancy`, asked of the card once per layout and dtype:
     the gauge ``b2.blocks_per_sm`` of a traced launch."""
     return fused_occupancy(lay, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _registers(dtype, lod_shared: bool) -> tuple:
+    """(registers, local-memory bytes) a thread of kernel B2's variant, as
+    ``cudaFuncGetAttributes`` reports them, asked once per dtype and
+    variant: the gauges ``b2.regs`` and ``b2.local_bytes``."""
+    lay = fused_layout(1, 1, 1, 0, 1, dtype, lod_shared)
+    return _query(lay, dtype, QUERY_REGS), _query(lay, dtype, QUERY_LOCAL_BYTES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -479,8 +500,10 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
     refuses raises.  With tracing on, a launch sets the gauges
     ``b2.blocks_per_sm``, the resident blocks per SM that the card reports
     at its layout, ``b2.waves``, the rounds of resident blocks the batch
-    takes (:func:`waves`), and ``b2.smem_bytes``, the layout's shared
-    memory a block (:mod:`lexls_tpu_torch.tracing`).
+    takes (:func:`waves`), ``b2.smem_bytes``, the layout's shared memory a
+    block, and ``b2.regs`` and ``b2.local_bytes``, the registers and the
+    local-memory bytes a thread of the kernel's variant
+    (:mod:`lexls_tpu_torch.tracing`).
     """
     kw = dict(dims=dims, prio=prio, elig=elig, tol_ld=tol_ld, tol_feas=tol_feas,
               tol_wrong=tol_wrong, tol_correct=tol_correct, max_fact=max_fact,
@@ -547,6 +570,9 @@ def fused_active_set(A, lb, ub, ctr_type, stamp, next_stamp, x, v, Ax, n_fact, i
         tracing.gauge("b2.blocks_per_sm", per_sm)
         tracing.gauge("b2.waves", waves(B, per_sm, _sm_count(dev)))
         tracing.gauge("b2.smem_bytes", lay.nbytes)
+        regs, local_bytes = _registers(dtype, lay.in_shared)
+        tracing.gauge("b2.regs", regs)
+        tracing.gauge("b2.local_bytes", local_bytes)
     _build.launch(fn, name, lambda: _entry_args(
         [None if t is None else t.data_ptr() for t in ins],
         [None if t is None else t.data_ptr() for t in outs], lay,

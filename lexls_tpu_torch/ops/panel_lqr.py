@@ -192,7 +192,11 @@ def pack_regions(sizes, big: int, in_shared):
     return bool(in_shared), offsets, sizes, nbytes, all_shared
 
 
-_STEP_BYTES = 320  # csrc/panel_step.cuh::StepScratch<double>; float needs less
+def _step_bytes(es: int) -> int:
+    """Bytes of ``csrc/panel_step.cuh::StepScratch<T>`` for a T of ``es``
+    bytes: the candidates of even and of odd steps, one a warp of the
+    kernels' four, each four reals and two ints."""
+    return 2 * 4 * (4 * es + 2 * 4)
 
 # csrc/panel_lqr.cu::PanelRegion, in order
 PANEL_REGIONS = ("blk", "cn", "hh", "den", "pos", "col_at", "rank_row", "step")
@@ -207,7 +211,7 @@ def panel_layout(dim: int, n: int, dtype, blk_shared: Optional[bool] = None) -> 
     a thread block may use (``blk_shared`` forces either)."""
     es = torch.empty(0, dtype=dtype).element_size()
     ld = odd_stride(n)
-    sizes = (dim * ld * es, n * es, dim * es, dim * es, n * 4, n * 4, n * 4, _STEP_BYTES)
+    sizes = (dim * ld * es, n * es, dim * es, dim * es, n * 4, n * 4, n * 4, _step_bytes(es))
     shared, offsets, sizes, nbytes, all_shared = pack_regions(sizes, 0, blk_shared)
     return SharedLayout(shared, ld, offsets, sizes, nbytes, all_shared)
 

@@ -17,7 +17,8 @@ from lexls_tpu_torch.ops import fused as fused_mod
 from lexls_tpu_torch.ops import panel_lqr as panel_mod
 from lexls_tpu_torch.ops import phase1 as phase1_mod
 from lexls_tpu_torch.ops.fused import fused_layout
-from lexls_tpu_torch.ops.panel_lqr import (SMEM_BLOCK_LIMIT, odd_stride, pack_regions,
+from lexls_tpu_torch.ops.panel_lqr import (SMEM_BLOCK_LIMIT, SMEM_BLOCK_RESERVED,
+                                           SMEM_SM_BYTES, odd_stride, pack_regions,
                                            panel_layout)
 
 CSRC = Path(fused_mod.__file__).resolve().parents[1] / "csrc"
@@ -71,10 +72,14 @@ def test_fused_layout_regions(shape, dtype):
     assert size["lam"] == p * m * es and size["rhs_all"] == (p - 1) * n * es
     assert size["u"] == dmax * es and size["hh"] == (m - d0) * es
     assert size["fval"] == (n * es if d0 else 0) and size["fmask"] == (n * 4 if d0 else 0)
-    assert size["pos"] == size["col_at"] == n * 4 and size["ct"] == size["st"] == m * 4
-    for k in ("v", "Ax", "dv", "Adx", "lb", "ub"):
+    assert size["pos"] == size["col_at"] == n * 4 and size["ct"] == m * 4
+    for k in ("v", "Ax", "dv", "Adx"):
         assert size[k] == m * es
     assert size["x"] == size["xdx"] == size["cn"] == n * es
+    # the step's scratch as StepScratch<T> of this dtype; the bounds, the
+    # stamps and the CORRECT_SIGN marks (carried by ct) take no shared memory
+    assert size["step"] == 2 * (fused_mod._THREADS // 32) * (4 * es + 2 * 4)
+    assert not {"lb", "ub", "st", "sense"} & set(fused_mod.FUSED_REGIONS)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=IDS)
@@ -116,13 +121,23 @@ def test_fused_layout_rule_flips_at_the_limit(dtype):
 
 def test_bench_shape_blocks_per_sm():
     """All 384 instances of the bench batch are resident at once in
-    float32 (3 blocks on each of 132 SMs); float64 fits two."""
+    float32 (4 blocks on each of 132 SMs, 528 at a time); float64 fits two."""
     f32 = fused_layout(120, 100, 4, 0, 30, torch.float32)
     f64 = fused_layout(120, 100, 4, 0, 30, torch.float64)
-    assert f32.in_shared and f32.blocks_per_sm == 3 and 3 * 132 >= 384
+    assert f32.in_shared and f32.blocks_per_sm == 4 and 4 * 132 == 528 >= 384
     assert f64.in_shared and f64.blocks_per_sm == 2
     assert fused_layout(120, 100, 4, 0, 30, torch.float64, False).blocks_per_sm >= 3
     assert panel_layout(30, 100, torch.float32).blocks_per_sm >= 3
+
+
+def test_bench_shape_fits_four_blocks_an_sm_in_float32():
+    """Kernel B2's float32 launch bound asks for four resident blocks (at
+    most 128 registers a thread): the bench shape's layout leaves room for
+    them, 57,344 B a block with the 1 KB each reserves."""
+    lay = fused_layout(120, 100, 4, 0, 30, torch.float32)
+    assert lay.nbytes <= SMEM_SM_BYTES // 4 - SMEM_BLOCK_RESERVED == 57_344
+    src = (CSRC / "fused.cu").read_text()
+    assert re.search(r"__launch_bounds__\(kFusedThreads, sizeof\(T\) == 8 \? 2 : 4\)", src)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=IDS)
@@ -220,7 +235,8 @@ def test_kernel_constants_match_the_wrappers():
     # StepScratch: two buffers of four candidates, each four reals and two ints
     assert re.search(r"struct StepScratch \{\s*Candidate<T> best\[2\]\[kStepWarps\];\s*\};", step)
     assert re.search(r"kStepWarps\s*=\s*(\d+)", step).group(1) == str(fused_mod._THREADS // 32)
-    assert panel_mod._STEP_BYTES == 2 * (fused_mod._THREADS // 32) * (4 * 8 + 2 * 4)
+    for es in (4, 8):
+        assert panel_mod._step_bytes(es) == 2 * (fused_mod._THREADS // 32) * (4 * es + 2 * 4)
     # at most three block-wide barriers in a pivot step
     body = step[step.index("__device__ bool panel_step"):]
     body = body[:body.index("// After the level's last step")]

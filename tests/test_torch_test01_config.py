@@ -84,8 +84,8 @@ def test_level_residuals_match_the_float64_reference(run, step):
         assert gap <= 1e-8, (step, i - step * B, gap)
 
 
-@pytest.mark.parametrize("dtype,nbytes,per_sm", [(torch.float64, 123_616, 1),
-                                                  (torch.float32, 63_824, 3)],
+@pytest.mark.parametrize("dtype,nbytes,per_sm", [(torch.float64, 118_592, 1),
+                                                  (torch.float32, 60_336, 3)],
                          ids=["f64", "f32"])
 def test_b2_layout_at_the_full_shape(dtype, nbytes, per_sm):
     """B2's layout as its wrapper asks for it at test_01's shape: four

@@ -2,8 +2,8 @@
 when off; the span tree of a warm and a cold ``solve_core_fused``; only a
 profiler's active steps recorded; the profiler's ``lexls.*`` events inside
 the in-memory spans on one clock; the cap.  On the card: the launch
-counters, B2's gauges (blocks per SM, waves, shared memory a block) and the
-CUDA events around launches.
+counters, B2's gauges (blocks per SM, waves, shared memory a block,
+registers and local memory a thread) and the CUDA events around launches.
 
 This file imports no JAX, so its CUDA tests also run on a machine with a
 GPU and no JAX.
@@ -163,7 +163,8 @@ def test_recording_nests_and_ends_on_an_error():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_launches_the_gauge_and_device_events_on_the_card(cuda_device, dtype):  # noqa: F811
-    from lexls_tpu_torch.ops.fused import _blocks_per_sm, _sm_count, fused_layout, waves
+    from lexls_tpu_torch.ops.fused import (_blocks_per_sm, _registers, _sm_count, fused_layout,
+                                           waves)
 
     step = _stepper(cuda_device, dtype)
     state = step()  # builds the kernels outside the recording
@@ -182,9 +183,14 @@ def test_launches_the_gauge_and_device_events_on_the_card(cuda_device, dtype):  
                              f"launches.lexls_phase1_warm_{suffix}": 1}
     lay = fused_layout(9, 8, p, 0, 3, dtype)
     per_sm = _blocks_per_sm(lay, dtype)
+    regs, local_bytes = _registers(dtype, lay.in_shared)
     assert snap.gauges == {"b2.blocks_per_sm": per_sm, "b2.smem_bytes": lay.nbytes,
-                           "b2.waves": waves(4, per_sm, _sm_count(cuda_device))}
+                           "b2.waves": waves(4, per_sm, _sm_count(cuda_device)),
+                           "b2.regs": regs, "b2.local_bytes": local_bytes}
     assert per_sm >= 1 and snap.gauges["b2.waves"] == 1
+    # the launch bound: four blocks of 128 threads an SM in float32, two in float64
+    bound = 4 if dtype == torch.float32 else 2
+    assert 0 < regs <= min(255, 65536 // (128 * bound)) and local_bytes >= 0
     assert [e[0] for e in snap.device_events] == (
         [f"lexls_activation_{suffix}"] + [f"lexls_panel_factorize_{suffix}"] * p
         + [f"lexls_fused_active_set_{suffix}", f"lexls_activation_{suffix}",
